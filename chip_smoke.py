@@ -147,11 +147,11 @@ def kernel_phase(torch, np, dev, flush):
                            device=dev)
         w = torch.tensor(rng.standard_normal((K, K)).astype(np.float32),
                          device=dev)
-        check(torch, "conv2d", conv2d_cuda(img, w),
-              conv2d_shift_add(img, w), f"{H}x{W} K={K}")
-        lib_err = (conv2d_cuda(img, w) - conv2d_ref(img, w)).abs().max()
-        print(f"kernel conv2d {H}x{W} K={K}: max |kernel - F.conv2d| = "
-              f"{lib_err.item():.3g} (information)")
+        out = conv2d_cuda(img, w)
+        check(torch, "conv2d", out, conv2d_shift_add(img, w),
+              f"{H}x{W} K={K}")
+        check(torch, "conv2d", out, conv2d_ref(img, w),
+              f"{H}x{W} K={K} against F.conv2d")
     H = CONV_SIZE // 16 + CONV_K - 1
     img = torch.tensor(rng.standard_normal((H, CONV_SIZE)).astype(
         np.float32), device=dev)
@@ -159,6 +159,8 @@ def kernel_phase(torch, np, dev, flush):
         np.float32), device=dev)
     err = check(torch, "conv2d", conv2d_cuda(img, w),
                 conv2d_shift_add(img, w), "main path chunk")
+    check(torch, "conv2d", conv2d_cuda(img, w), conv2d_ref(img, w),
+          "main path chunk against F.conv2d")
     row("conv2d", err, time_ms(torch, lambda: conv2d_cuda(img, w), flush),
         time_ms(torch, lambda: conv2d_shift_add(img, w), flush, iters=10),
         2.0 * H * CONV_SIZE * CONV_K ** 2,
@@ -238,7 +240,8 @@ def kernel_phase(torch, np, dev, flush):
     row("probe_add_one", err,
         time_ms(torch, lambda: probe_add_one(t), flush),
         time_ms(torch, lambda: t + 1.0, flush),
-        1.0 * t.numel(), 8.0 * t.numel(), None, "128x128")
+        1.0 * t.numel(), 8.0 * t.numel(),
+        time_ms(torch, lambda: torch.add(t, 1.0), flush), "128x128")
     return rows
 
 
@@ -291,8 +294,16 @@ def profiled(torch, label, fn):
     return out
 
 
+OWN_KERNEL = {"conv": "conv2d", "hist": "hist", "spmv": "spmv_ell"}
+
+
 def hybrid_phase(torch, np):
+    """Returns the launch counts of each main-path call ("conv cold",
+    "conv warm", ...): every count is set to 0 just before the call and
+    read just after it."""
+    from repro_torch.core import cost_model
     from repro_torch.core.hybrid_executor import HybridExecutor
+    from repro_torch.kernels import common
     from repro_torch.kernels.conv2d.ref import conv2d_ref
     from repro_torch.workloads import conv, hist, spmv
 
@@ -303,10 +314,21 @@ def hybrid_phase(torch, np):
     if ex.simulated or devs != {"accel": ["cuda:0"], "host": ["cpu"]}:
         raise AssertionError(f"expected accel=cuda:0 host=cpu, got {devs}")
 
+    per_call = {}
+
     def run(label, fn, reference, tol, forced=False, profile=False):
+        common.reset_launches()
         t0 = time.perf_counter()
         out = profiled(torch, label, fn) if profile else fn()
         wall = time.perf_counter() - t0
+        counts = common.launch_counts()
+        print(f"hybrid {label}: launches={counts}")
+        workload, kind = label.split()
+        if kind in ("cold", "warm"):
+            per_call[label] = counts
+            if counts[OWN_KERNEL[workload]] <= 0:
+                raise AssertionError(f"{label}: {OWN_KERNEL[workload]} was "
+                                     f"not launched")
         if out.result.mode != "threads":
             raise AssertionError(f"{label}: mode {out.result.mode}")
         value = out.value.cpu()
@@ -337,6 +359,9 @@ def hybrid_phase(torch, np):
           f"matrix on the host, so n is cut to what host memory and time "
           f"allow)")
 
+    # each workload's cold call starts, as in a fresh process, with no
+    # hardware profile: its calibration measures one (the probe kernel)
+    cost_model.reset_profiles()
     for label in ("cold", "warm"):
         run(f"conv {label}", lambda: conv.run_hybrid(
             ex, size=CONV_SIZE, ksize=CONV_K), conv_ref, TOL["conv2d"])
@@ -349,6 +374,7 @@ def hybrid_phase(torch, np):
         plan_override=[CONV_SIZE - 2 * chunk, 2 * chunk]),
         conv_ref, TOL["conv2d"], forced=True)
 
+    cost_model.reset_profiles()
     for label in ("cold", "warm"):
         run(f"hist {label}", lambda: hist.run_hybrid(
             ex, n=HIST_N, n_bins=HIST_BINS), hist_ref, 0)
@@ -358,6 +384,7 @@ def hybrid_phase(torch, np):
         ex, n=HIST_N, n_bins=HIST_BINS, plan_override=[56, 8]),
         hist_ref, 0, forced=True)
 
+    cost_model.reset_profiles()
     outs = [run(f"spmv {label}", lambda: spmv.run_hybrid(
         ex, n=SPMV_N, density=SPMV_DENSITY), spmv_ref, 1e-4)
         for label in ("cold", "warm")]
@@ -368,6 +395,11 @@ def hybrid_phase(torch, np):
         ex, n=SPMV_N, density=SPMV_DENSITY,
         plan_override=[total - total // 4, total // 4]),
         spmv_ref, 1e-4, forced=True)
+    for workload in OWN_KERNEL:
+        if per_call[f"{workload} cold"]["probe_add_one"] <= 0:
+            raise AssertionError(f"{workload} cold: the calibration did "
+                                 f"not launch probe_add_one")
+    return per_call
 
 
 def main() -> None:
@@ -403,12 +435,12 @@ def main() -> None:
     rows = kernel_phase(torch, np, dev, flush)
     del flush
 
-    common.reset_launches()
-    hybrid_phase(torch, np)
-    counts = common.launch_counts()
-    print(f"launches in the hybrid phase: {counts}")
+    per_call = hybrid_phase(torch, np)
+    # the main path: the cold and the warm call of each workload
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches_per_call"] = {label: c[r["name"]]
+                                  for label, c in per_call.items()}
+        r["launches"] = sum(r["launches_per_call"].values())
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on the "
                                  f"main path")

@@ -34,7 +34,6 @@ benchmarks can show how far reality is from the model.
 """
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -61,8 +60,7 @@ class DeviceGroup:
     slowdown: float = 1.0            # simulated relative slowdown (>=1)
 
 
-def detect_platform(simulated_ratio: float = 4.0,
-                    force_simulated: bool = False, device=None
+def detect_platform(simulated_ratio: float = 4.0, device=None
                     ) -> Tuple[List[DeviceGroup], bool]:
     """Build device groups.
 
@@ -71,12 +69,7 @@ def detect_platform(simulated_ratio: float = 4.0,
     ``accel`` on the GPU, ``host`` on the CPU (real heterogeneity, the
     paper's pair).  An explicit CPU accel device -> simulate a hybrid
     pair on the CPU with the given throughput ratio (Hybrid-Low's
-    GPU:CPU sustained ratio 77.7/20 ~= 3.9 is the default).
-
-    ``force_simulated`` always builds the simulated pair on the accel
-    device — benchmarks that sweep throughput ratios (table2's
-    Hybrid-High vs -Low) need the ratio honored even where a real pair
-    exists."""
+    GPU:CPU sustained ratio 77.7/20 ~= 3.9 is the default)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -85,7 +78,7 @@ def detect_platform(simulated_ratio: float = 4.0,
         accel = torch.device("cuda", 0)
     else:
         accel = torch.device(device)
-    if force_simulated or accel.type == "cpu":
+    if accel.type == "cpu":
         return ([DeviceGroup("accel", [accel], "accel", slowdown=1.0),
                  DeviceGroup("host", [accel], "host",
                              slowdown=simulated_ratio)], True)
@@ -127,12 +120,9 @@ class HybridExecutor:
 
     def __init__(self, groups: Optional[List[DeviceGroup]] = None,
                  simulated_ratio: float = 4.0, n_chunks: int = 16,
-                 steal: bool = True,
-                 time_model: Optional[Callable[[str, int], float]] = None,
-                 force_simulated: bool = False, device=None):
+                 device=None):
         if groups is None:
-            groups, sim = detect_platform(simulated_ratio, force_simulated,
-                                          device)
+            groups, sim = detect_platform(simulated_ratio, device)
             self.simulated = sim
         else:
             devs = [str(d) for g in groups for d in g.devices]
@@ -146,23 +136,12 @@ class HybridExecutor:
                      for g in groups for d in g.devices)
         self.backend = "torch:cuda" if on_gpu else "torch:cpu"
         self.cache = get_calibration_cache(self.backend)
-        self.time_model = time_model
-        self._async = AsyncChunkExecutor(groups, steal=steal,
-                                         time_model=time_model)
         self._cache_key: Optional[str] = None
         self._warm = False
-        # the serving scheduler shares ONE executor between concurrent
-        # worker threads: calibrate/run_work_shared mutate tracker,
-        # steal flags and warm state, so a work-shared call holds this
-        # lock end to end (re-entrant: calibrate inside a locked call)
-        self._call_lock = threading.RLock()
-        self.last_probe_runs = 0     # probe executions paid by the last
-        #                              calibrate() (0 = cache/model hit)
 
     # ------------------------------------------------------------------
     def calibrate(self, fn: Callable[[str, int], object], probe_units: int,
-                  workload: Optional[str] = None, iters: int = 1,
-                  unit_cost=None, probe: bool = True) -> None:
+                  workload: Optional[str] = None, unit_cost=None) -> None:
         """Seed per-group throughput for a workload (paper §4.5).
 
         On a cache hit for every group the probe runs are skipped
@@ -181,120 +160,75 @@ class HybridExecutor:
         even a first-ever call plans without probes; the model's guess
         is never persisted — the first real chunks overwrite it with
         measurements.  On a miss without ``unit_cost`` (or with the
-        model disabled) each group runs the probe ``1 + iters`` times
-        (one warmup so a first-use kernel build or allocation never
-        distorts the measurement), *under the group's pinned device
-        context*, so each group warms its own device.
-        ``last_probe_runs`` reports how many groups actually probed
-        (0 = fully cache/model seeded: the zero-probe contract).
-
-        ``probe=False`` forbids probe runs entirely (the serving
-        scheduler's batched executions, where ``fn`` would re-execute a
-        member request): a group with neither a cache entry nor a model
-        prior is simply left unseeded — the plan starts symmetric and
-        work stealing absorbs the error within the first call.
+        model disabled) each group runs the probe twice (one warmup so
+        a first-use kernel build or allocation never distorts the
+        measurement), *under the group's pinned device context*, so
+        each group warms its own device.
         """
-        with self._call_lock:
-            self.tracker.reset()
-            self._cache_key = workload
-            probe_units = max(int(probe_units), 1)
-            warm = True
-            self.last_probe_runs = 0
-            for g in self.groups:
-                cached = (self.cache.get(workload, g.name, g.slowdown)
-                          if workload else None)
-                if cached is not None:
-                    self.tracker.seed(g.name, cached)
-                    warm = warm and self.cache.warmed_in_process(
-                        workload, g.name, g.slowdown)
+        self.tracker.reset()
+        self._cache_key = workload
+        probe_units = max(int(probe_units), 1)
+        warm = True
+        for g in self.groups:
+            cached = (self.cache.get(workload, g.name, g.slowdown)
+                      if workload else None)
+            if cached is not None:
+                self.tracker.seed(g.name, cached)
+                warm = warm and self.cache.warmed_in_process(
+                    workload, g.name, g.slowdown)
+                continue
+            warm = False
+            uc = (unit_cost.get(g.name)
+                  if isinstance(unit_cost, dict) else unit_cost)
+            if uc is not None:
+                from repro_torch.core import cost_model
+                if cost_model.enabled():
+                    dev = primary_device(g) or torch.device("cpu")
+                    t_unit = cost_model.predict(uc, dev) * g.slowdown
+                    self.tracker.seed(g.name, t_unit)
                     continue
-                warm = False
-                uc = (unit_cost.get(g.name)
-                      if isinstance(unit_cost, dict) else unit_cost)
-                if uc is not None:
-                    from repro_torch.core import cost_model
-                    if cost_model.enabled():
-                        dev = primary_device(g) or torch.device("cpu")
-                        t_unit = cost_model.predict(uc, dev) * g.slowdown
-                        self.tracker.seed(g.name, t_unit)
-                        continue
-                if not probe:
-                    continue
-                with device_ctx(g):
-                    t = measure(lambda: fn(g.name, probe_units), warmup=1,
-                                iters=iters)
-                self.last_probe_runs += 1
-                t *= g.slowdown
-                self.tracker.update(g.name, probe_units, t)
-                if workload:
-                    self.cache.put(workload, g.name, t / probe_units,
-                                   g.slowdown)
-            self._warm = warm
-            self.tracker.mark_planned()
+            with device_ctx(g):
+                t = measure(lambda: fn(g.name, probe_units), warmup=1,
+                            iters=1)
+            t *= g.slowdown
+            self.tracker.update(g.name, probe_units, t)
+            if workload:
+                self.cache.put(workload, g.name, t / probe_units,
+                               g.slowdown)
+        self._warm = warm
+        self.tracker.mark_planned()
 
-    def plan(self, total_units: int, comm_cost: float = 0.0,
-             post_cost: float = 0.0,
-             min_units: int = 0) -> work_sharing.WorkPlan:
+    def plan(self, total_units: int, comm_cost: float = 0.0
+             ) -> work_sharing.WorkPlan:
         thr = self.tracker.throughputs([g.name for g in self.groups])
-        return work_sharing.plan_work(total_units, thr, comm_cost, post_cost,
-                                      min_units=min_units)
+        return work_sharing.plan_work(total_units, thr, comm_cost)
 
     # ------------------------------------------------------------------
-    def _mode(self) -> str:
-        if self.time_model is not None or self.simulated:
-            return "virtual"
-        return "threads"
-
     def run_work_shared(self, workload: str, total_units: int,
                         run_share: Callable[[str, int, int], object],
                         combine: Callable[[Sequence[object]], object],
-                        comm_cost: float = 0.0, post_cost: float = 0.0,
-                        warmup: Optional[bool] = None,
+                        comm_cost: float = 0.0,
                         plan_override: Optional[Sequence[int]] = None,
                         sequential: bool = False,
-                        steal: Optional[bool] = None,
-                        whole_shares: bool = False,
-                        min_units: int = 0) -> WorkSharedOutput:
+                        whole_shares: bool = False) -> WorkSharedOutput:
         """Execute one work-shared computation, chunk-pipelined.
 
         run_share(group_name, start_unit, n_units) -> share output
         combine(outputs) -> final value (outputs arrive in unit order)
-        warmup: force (True) or suppress (False) the one untimed
-        warmup chunk per group; default None warms only when the
-        calibration cache was cold for this workload.
+        The first call after a cold calibration runs one untimed warmup
+        chunk per chunk shape and group.
         plan_override: force this exact unit split (benchmark sweeps);
         also disables stealing so the forced split is honored.
         sequential: run the no-overlap baseline loop instead (each
         chunk still executes exactly once).
-        steal: per-call work-stealing override — suitability-split
-        workloads (spmv's dense-head/sparse-tail) pass False because a
-        cross-path steal repacks data-dependent shapes mid-run.
         whole_shares: execute each group's share as ONE chunk (implies
         no stealing) — for suitability splits whose per-chunk shapes
         are data-dependent, where a uniform chunk grid would make
-        every chunk a fresh packing in the timed path.
-        min_units: floor every live group's share (the serving
-        scheduler's batched executions pass 1 so a group with a stale
-        slow estimate keeps executing — and correcting — its own
-        measurement instead of starving on its own history).
-
-        Thread-safe: the whole call holds the executor's re-entrant
-        call lock (a work-shared call needs every group anyway), so the
-        serving scheduler can share one executor between workers."""
-        with self._call_lock:
-            return self._run_work_shared_locked(
-                workload, total_units, run_share, combine, comm_cost,
-                post_cost, warmup, plan_override, sequential, steal,
-                whole_shares, min_units)
-
-    def _run_work_shared_locked(self, workload, total_units, run_share,
-                                combine, comm_cost, post_cost, warmup,
-                                plan_override, sequential, steal,
-                                whole_shares, min_units) -> WorkSharedOutput:
+        every chunk a fresh packing in the timed path."""
         cache_key = self._cache_key or workload
-        plan = self.plan(total_units, comm_cost, post_cost,
-                         min_units=min_units)
+        plan = self.plan(total_units, comm_cost)
         chunk_units = max(total_units // self.n_chunks, 1)
+        names = [g.name for g in self.groups]
         if plan_override is not None:
             units = list(plan_override)
             if sum(units) != total_units:
@@ -302,11 +236,10 @@ class HybridExecutor:
                                  f"the {total_units} units")
         else:
             # chunk-rounded shares, damped against call-to-call drift so
-            # chunk->group assignment (and chunk shapes) stay stable
-            names = [g.name for g in self.groups]
+            # chunk->group assignment (and chunk shapes) stay stable;
             # plans are per platform: the same workload on a different
-            # slowdown profile (Hybrid-High vs -Low) must not reuse or
-            # damp against this platform's chunk assignment
+            # slowdown profile must not reuse or damp against this
+            # platform's chunk assignment
             plan_key = cache_key + "|" + ",".join(
                 f"{g.name}:{g.slowdown:g}" for g in self.groups)
             assigned0 = ([int(u) for u in plan.units] if whole_shares
@@ -314,14 +247,14 @@ class HybridExecutor:
                                               chunk_units))
             units = self.cache.sticky_plan(
                 plan_key, total_units, chunk_units, assigned0)
-        do_warmup = (not self._warm) if warmup is None else warmup
+        do_warmup = not self._warm
 
-        mode = "sequential" if sequential else self._mode()
-        # what the scheduler will actually allow (mirrors the override
-        # applied to self._async.steal below + AsyncChunkExecutor.run)
-        base_steal = self._async.steal if steal is None else steal
-        eff_steal = (base_steal and mode != "sequential"
-                     and not whole_shares and plan_override is None)
+        mode = ("sequential" if sequential
+                else "virtual" if self.simulated else "threads")
+        steal = plan_override is None
+        # what the scheduler will actually allow (mirrors
+        # AsyncChunkExecutor.run)
+        eff_steal = steal and mode != "sequential" and not whole_shares
 
         if do_warmup:
             # warm the chunk shapes each group will actually execute:
@@ -335,7 +268,6 @@ class HybridExecutor:
             # pay them.  With stealing on, every group warms the whole
             # grid's signatures — a stolen boundary chunk must not pay
             # them mid-run either.
-            names = [g.name for g in self.groups]
             active = [(n_, k) for n_, k in zip(names, units) if k > 0]
             total_assigned = sum(k for _, k in active)
             if whole_shares:
@@ -368,26 +300,17 @@ class HybridExecutor:
                         warmed.add(sig)
                         sync(run_share(name, c.start, c.units))
 
-        saved_steal = self._async.steal
-        if plan_override is not None:
-            self._async.steal = False
-        elif steal is not None:
-            self._async.steal = steal
-        try:
-            thr = self.tracker.throughputs([g.name for g in self.groups])
-            priors = {g.name: (1.0 / t if t > 0 else 1.0)
-                      for g, t in zip(self.groups, thr)}
-            # groups with a calibrated/model-seeded unit time carry a
-            # trustworthy projection: they may steal before timing a
-            # chunk of their own this call (cold first calls included)
-            trusted = [g.name for g in self.groups
-                       if self.tracker.stats[g.name].n_obs > 0]
-            trace = self._async.run(units, run_share, chunk_units, mode,
-                                    unit_time_priors=priors,
-                                    whole_shares=whole_shares,
-                                    trusted_priors=trusted)
-        finally:
-            self._async.steal = saved_steal
+        thr = self.tracker.throughputs(names)
+        priors = {g.name: (1.0 / t if t > 0 else 1.0)
+                  for g, t in zip(self.groups, thr)}
+        # groups with a calibrated/model-seeded unit time carry a
+        # trustworthy projection: they may steal before timing a
+        # chunk of their own this call (cold first calls included)
+        trusted = [g.name for g in self.groups
+                   if self.tracker.stats[g.name].n_obs > 0]
+        trace = AsyncChunkExecutor(self.groups, steal=steal).run(
+            units, run_share, chunk_units, mode, unit_time_priors=priors,
+            whole_shares=whole_shares, trusted_priors=trusted)
         self._trace_chunks(workload, trace)
 
         if do_warmup:
@@ -397,18 +320,17 @@ class HybridExecutor:
         merge_t = time.perf_counter() - t0
 
         # measured makespan: concurrent span + un-hidden comm + merge
-        hybrid_time = trace.makespan + comm_cost + merge_t + post_cost
+        hybrid_time = trace.makespan + comm_cost + merge_t
         # analytic model of the *chunked* assignment (shares round to
         # whole chunks, so the ideal fractional plan would under- or
         # over-state the slow group's span)
         assigned = (list(units) if whole_shares else
-                    _assigned_units(units, [g.name for g in self.groups],
-                                    chunk_units))
-        thr_now = self.tracker.throughputs([g.name for g in self.groups])
+                    _assigned_units(units, names, chunk_units))
+        thr_now = self.tracker.throughputs(names)
         spans = [u / t for u, t in zip(assigned, thr_now) if t > 0]
         n_active = sum(1 for u in assigned if u > 0)
         analytic = (max(spans) if spans else 0.0) + (
-            comm_cost + post_cost if n_active > 1 else 0.0)
+            comm_cost if n_active > 1 else 0.0)
         # the same model with THIS run's observed per-unit times — the
         # paper's overlap structure (max, not sum) minus EWMA staleness
         # and machine-speed drift; groups that executed nothing fall
@@ -423,7 +345,7 @@ class HybridExecutor:
             elif t > 0:
                 spans_obs.append(u / t)
         analytic_obs = (max(spans_obs) if spans_obs else 0.0) + (
-            comm_cost + merge_t + post_cost if n_active > 1 else merge_t)
+            comm_cost + merge_t if n_active > 1 else merge_t)
         for g in self.groups:
             n_done = trace.group_units.get(g.name, 0)
             if n_done > 0:
@@ -469,12 +391,3 @@ class HybridExecutor:
             if r.stolen:
                 rec.instant("steal", "exec", track, workload=workload,
                             seq=r.chunk.seq, owner=r.chunk.owner)
-
-    # ------------------------------------------------------------------
-    def run_single(self, group_name: str, fn: Callable[[], object]
-                   ) -> Tuple[object, float]:
-        g = next(g for g in self.groups if g.name == group_name)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(out)                    # time execution, not async launch
-        return out, (time.perf_counter() - t0) * g.slowdown

@@ -67,14 +67,13 @@ __global__ void hist_kernel(const int* __restrict__ x, long long n,
 
 }  // namespace
 
-extern "C" int hist_i32(const int* x, long long n, int n_bins, int* out,
-                        void* stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// max_blocks: the wrapper passes a few blocks per SM, from the device's
+// properties that it reads once, so a launch makes no attribute query
+extern "C" int hist_i32(const int* x, long long n, int n_bins,
+                        int max_blocks, int* out, void* stream) {
   const long long need = (n / 4 + THREADS - 1) / THREADS;  // int4 per thread
   long long blocks = need < 1 ? 1 : need;
-  if (blocks > 4LL * sms) blocks = 4LL * sms;
+  if (blocks > max_blocks) blocks = max_blocks;
   hist_kernel<<<static_cast<int>(blocks), THREADS, sizeof(int) * n_bins,
                 static_cast<cudaStream_t>(stream)>>>(x, n, n_bins, out);
   return static_cast<int>(cudaGetLastError());

@@ -45,7 +45,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointer too); every one returns cudaGetLastError() as an int
 _SIGNATURES = {
     "conv2d_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "hist_i32": [_P, _LL, _I, _P, _P],
+    "hist_i32": [_P, _LL, _I, _I, _P, _P],
     "spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "probe_add_one_f32": [_P, _P, _I, _P],
 }

@@ -10,11 +10,21 @@ version had to replace with one-hot sums for want of atomics.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.common import check_cuda, launch
 
 _MAX_BINS = 48 * 1024 // 4       # one int counter per bin in shared memory
+_BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(device: torch.device) -> int:
+    """Grid cap of the grid-stride kernel, read once per device."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _BLOCKS_PER_SM * sms
 
 
 def hist_cuda(x: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -28,7 +38,7 @@ def hist_cuda(x: torch.Tensor, n_bins: int) -> torch.Tensor:
     out = torch.zeros(n_bins, dtype=torch.int32, device=dev)
     if x.numel():
         launch("hist", "hist_i32", dev, x.data_ptr(), x.numel(), n_bins,
-               out.data_ptr())
+               _max_blocks(dev), out.data_ptr())
     return out
 
 
