@@ -13,11 +13,13 @@
    call that computes the same function, with CUDA events.
 4. Hybrid phase: ``HybridExecutor()`` pairs the GPU (``accel``) with
    the CPU (``host``) in ``threads`` mode and runs conv (3600x3600,
-   K=15), hist (2^26 keys, 256 bins) and spmv (n=8192) cold, warm,
+   K=15), hist (2^26 keys, 256 bins), spmv (n=8192), bilateral
+   (3600x3600, radius 7) and sort (2^24 keys, 64 bins) cold, warm,
    warm under ``torch.profiler`` (the GPU's busy share) and with a
-   forced split that puts work on the CPU, checks every value against
-   a CPU reference, and checks that every kernel on the path was
-   launched.
+   forced split that puts work on the CPU, then sort's leaf sorter
+   (``sort leaf``: the bitonic kernel over the keys in 1024-wide rows);
+   checks every value against a reference, and checks that every
+   kernel on the path was launched.
 5. Prints the kernels' numbers as one JSON line, the card line again,
    and, last, ``{"ok": true, "device": {...}}``.
 
@@ -43,7 +45,8 @@ SRC = os.path.join(ROOT, "src")
 PEAK_F32_FLOPS = 67e12           # f32 on the CUDA cores (no tensor cores)
 PEAK_BYTES = 3.35e12             # HBM3 bytes/s
 
-TOL = {"conv2d": 2e-4, "hist": 0, "spmv_ell": 2e-5, "probe_add_one": 0}
+TOL = {"conv2d": 2e-4, "hist": 0, "spmv_ell": 2e-5, "probe_add_one": 0,
+       "sort_bitonic": 0, "bilateral": 1e-3}
 SOURCE = {
     "conv2d": ("src/repro_torch/csrc/conv2d.cu",
                "src/repro/kernels/conv2d/conv2d.py:41"),
@@ -53,11 +56,18 @@ SOURCE = {
                  "src/repro/kernels/spmv/spmv.py:36"),
     "probe_add_one": ("src/repro_torch/csrc/probe.cu",
                       "src/repro/core/cost_model.py:154"),
+    "sort_bitonic": ("src/repro_torch/csrc/sort_bitonic.cu",
+                     "src/repro/kernels/sort_bitonic/sort_bitonic.py:58"),
+    "bilateral": ("src/repro_torch/csrc/bilateral.cu",
+                  "src/repro/kernels/bilateral/bilateral.py:66"),
 }
 
 CONV_SIZE, CONV_K = 3600, 15
 HIST_N, HIST_BINS = 1 << 26, 256
 SPMV_N, SPMV_DENSITY = 8192, 0.01
+SORT_N, SORT_BINS, SORT_TILE = 1 << 24, 64, 1024
+BILAT_SIZE, BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS = 3600, 3.0, 30.0, 7
+BILAT_BAND = 64       # rows held against the direct (exp) filter, per edge
 
 
 def fail(msg: str) -> None:
@@ -112,6 +122,9 @@ def check(torch, name, out, ref, what) -> float:
 
 def kernel_phase(torch, np, dev, flush):
     from repro_torch.core.cost_model import probe_add_one
+    from repro_torch.core.host_offload import bilateral_luts
+    from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
+                                                         bilateral_lut_torch)
     from repro_torch.kernels.conv2d.conv2d import (conv2d_cuda,
                                                    conv2d_shift_add)
     from repro_torch.kernels.conv2d.ref import conv2d_ref
@@ -119,7 +132,11 @@ def kernel_phase(torch, np, dev, flush):
     from repro_torch.kernels.hist.ref import hist_ref
     from repro_torch.kernels.spmv import ops as spmv_ops
     from repro_torch.kernels.spmv.ref import spmv_ell_ref
+    from repro_torch.kernels.sort_bitonic.sort_bitonic import (
+        bitonic_rows_torch, sort_rows_cuda)
     from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
+    from repro_torch.workloads import bilateral as bilateral_w
+    from repro_torch.workloads import sort as sort_w
     from repro_torch.workloads import spmv as spmv_w
 
     rng = np.random.default_rng(7)
@@ -242,6 +259,65 @@ def kernel_phase(torch, np, dev, flush):
         time_ms(torch, lambda: t + 1.0, flush),
         1.0 * t.numel(), 8.0 * t.numel(),
         time_ms(torch, lambda: torch.add(t, 1.0), flush), "128x128")
+
+    # K5 sort_bitonic: ragged G and L (one pair, L = 8192) with +inf
+    # padding, -inf, duplicates and -0.0 beside 0.0, then the main
+    # path's rows (the sort workload's 2^24 keys as 1024-wide rows)
+    for G, L in [(10, 16), (70, 64), (33, 256), (1, 2), (5, 8192)]:
+        x = rng.standard_normal((G, L)).astype(np.float32)
+        x[0, L // 2:] = np.inf
+        x[-1, :L // 4] = -np.inf
+        if G > 2:
+            x[1] = np.round(x[1])
+            x[2, ::2], x[2, 1::2] = -0.0, 0.0
+        xt = torch.tensor(x, device=dev)
+        out = sort_rows_cuda(xt)
+        check(torch, "sort_bitonic", out, bitonic_rows_torch(xt),
+              f"G={G} L={L}")
+        check(torch, "sort_bitonic", out, torch.sort(xt, dim=1).values,
+              f"G={G} L={L} against torch.sort")
+    x = torch.tensor(sort_w.make_inputs(SORT_N), device=dev).reshape(
+        -1, SORT_TILE)
+    G, L = x.shape
+    err = check(torch, "sort_bitonic", sort_rows_cuda(x),
+                bitonic_rows_torch(x), "main path rows")
+    check(torch, "sort_bitonic", sort_rows_cuda(x),
+          torch.sort(x, dim=1).values, "main path rows against torch.sort")
+    stages = (L.bit_length() - 1) * L.bit_length() // 2
+    row("sort_bitonic", err,
+        time_ms(torch, lambda: sort_rows_cuda(x), flush),
+        time_ms(torch, lambda: bitonic_rows_torch(x), flush, iters=10),
+        2.0 * G * (L // 2) * stages,            # compare + select per pair
+        8.0 * G * L,
+        time_ms(torch, lambda: torch.sort(x, dim=1), flush),
+        f"G={G} L={L}")
+    del x
+
+    # K6 bilateral: ragged H/W (a 1-row block, odd W), radius 1, 2 and 7,
+    # then the main path's chunk (225 rows + 14 halo rows of the
+    # 3600-wide image, K=15)
+    for H, W, radius in [(37, 101, 1), (50, 33, 2), (129, 77, 7),
+                         (1, 301, 7), (9, 15, 7)]:
+        img = torch.tensor((rng.random((H, W)) * 255).astype(np.float32),
+                           device=dev)
+        sp, rl = (torch.tensor(a, device=dev) for a in bilateral_luts(
+            BILAT_SIGMA_S, BILAT_SIGMA_R, radius))
+        check(torch, "bilateral", bilateral_cuda(img, sp, rl),
+              bilateral_lut_torch(img, sp, rl), f"{H}x{W} r={radius}")
+    H = BILAT_SIZE // 16 + 2 * BILAT_RADIUS
+    img = torch.tensor(bilateral_w.make_inputs(BILAT_SIZE)[:H], device=dev)
+    sp, rl = (torch.tensor(a, device=dev) for a in bilateral_luts(
+        BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS))
+    K = sp.shape[0]
+    err = check(torch, "bilateral", bilateral_cuda(img, sp, rl),
+                bilateral_lut_torch(img, sp, rl), "main path chunk")
+    row("bilateral", err,
+        time_ms(torch, lambda: bilateral_cuda(img, sp, rl), flush),
+        time_ms(torch, lambda: bilateral_lut_torch(img, sp, rl), flush,
+                iters=10),
+        6.0 * H * BILAT_SIZE * K * K,           # the reference's count
+        4.0 * (2 * H * BILAT_SIZE + K * K + rl.numel()),
+        None, f"{H}x{BILAT_SIZE} K={K}")
     return rows
 
 
@@ -275,37 +351,95 @@ def report(label, out) -> None:
         print(f"hybrid {label}: finding: the host group ran 0 units")
 
 
+def _union_s(spans) -> float:
+    """Length in seconds of the union of (start_us, end_us) intervals."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total / 1e6
+
+
 def profiled(torch, label, fn):
     """Run ``fn`` under torch.profiler and print the GPU's busy time
-    (device time summed over kernels and copies) against the call's
-    hybrid_time, and the device time by name."""
+    inside the call's timed windows (the executor's chunk run and merge,
+    which it marks with record_function) against the call's
+    hybrid_time: the union of the device's kernel, copy and memset
+    intervals, so that nothing is counted twice and set-up outside the
+    windows (sort's binning) is left out.  Also prints the busy time of
+    the whole call and the device time by name inside the windows."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.hybrid_executor import TIMED_MERGE, TIMED_RUN
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
-    rows = [(e.key, e.self_device_time_total)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(t for _, t in rows) / 1e6
+    events = prof.events()
+    marks = (TIMED_RUN, TIMED_MERGE)
+    # each window is the span of its marker's events: the host's record
+    # and, where the main thread launched device work inside it (the
+    # merge), the profiler's mirror of it on the device's timeline, an
+    # annotation that is no device work and whose device type differs
+    # between torch versions
+    windows = []
+    for mark in marks:
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == mark]
+        if not spans:
+            raise AssertionError(f"{label}: no {mark} window in the "
+                                 f"profile")
+        windows.append((min(lo for lo, _ in spans),
+                        max(hi for _, hi in spans)))
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in marks
+              and not getattr(e, "is_user_annotation", False)]
+    inside, by_name = [], {}
+    for e in device:
+        for w0, w1 in windows:
+            lo, hi = max(e.time_range.start, w0), min(e.time_range.end, w1)
+            if hi > lo:
+                inside.append((lo, hi))
+                t, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + hi - lo, n + 1)
+    busy = _union_s(inside)
+    if busy <= 0:
+        raise AssertionError(f"{label}: no device time inside the timed "
+                             f"windows")
     span = out.result.hybrid_time
+    call = _union_s([(e.time_range.start, e.time_range.end)
+                     for e in device])
     print(f"hybrid {label}: gpu_busy_s={busy!r} "
-          f"gpu_idle_share={1.0 - busy / span!r}")
-    for key, t in sorted(rows, key=lambda kv: -kv[1])[:5]:
-        print(f"hybrid {label}: device {t / 1e3:.3f} ms  {key[:100]}")
+          f"gpu_idle_share={1.0 - busy / span!r} "
+          f"windows_s={sum(w1 - w0 for w0, w1 in windows) / 1e6!r} "
+          f"gpu_busy_call_s={call!r}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    for name, (t, n) in top:
+        print(f"hybrid {label}: device {t / 1e3:.3f} ms in {n}  {name[:90]}")
     return out
 
 
-OWN_KERNEL = {"conv": "conv2d", "hist": "hist", "spmv": "spmv_ell"}
+# the kernel each workload's cold and warm calls must launch: sort's
+# timed path sorts natively, as the reference's does; it launches the
+# hist kernel in its binning, and the bitonic kernel in ``sort leaf``
+OWN_KERNEL = {"conv": "conv2d", "hist": "hist", "spmv": "spmv_ell",
+              "bilateral": "bilateral", "sort": "hist"}
 
 
 def hybrid_phase(torch, np):
     """Returns the launch counts of each main-path call ("conv cold",
-    "conv warm", ...): every count is set to 0 just before the call and
-    read just after it."""
+    "conv warm", ..., "sort leaf"): every count is set to 0 just before
+    the call and read just after it."""
     from repro_torch.core import cost_model
+    from repro_torch.core.host_offload import bilateral_luts
     from repro_torch.core.hybrid_executor import HybridExecutor
     from repro_torch.kernels import common
+    from repro_torch.kernels.bilateral.bilateral import bilateral_lut_torch
+    from repro_torch.kernels.bilateral.ref import bilateral_ref
     from repro_torch.kernels.conv2d.ref import conv2d_ref
-    from repro_torch.workloads import conv, hist, spmv
+    from repro_torch.workloads import bilateral, conv, hist, sort, spmv
+    from repro_torch.workloads.sort import leaf_sort_bitonic
 
     ex = HybridExecutor()
     devs = {g.name: [str(d) for d in g.devices] for g in ex.groups}
@@ -395,6 +529,78 @@ def hybrid_phase(torch, np):
         ex, n=SPMV_N, density=SPMV_DENSITY,
         plan_override=[total - total // 4, total // 4]),
         spmv_ref, 1e-4, forced=True)
+
+    # bilateral: the value against the plain LUT filter over the whole
+    # image on the card (independent of the kernel), and a band at each
+    # edge against the direct filter on the CPU at the reference
+    # test's tolerances
+    dev = torch.device("cuda", 0)
+    img = bilateral.make_inputs(BILAT_SIZE)
+    sp, rl = bilateral_luts(BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS)
+    bilat_ref = bilateral_lut_torch(
+        torch.tensor(img, device=dev), torch.tensor(sp, device=dev),
+        torch.tensor(rl, device=dev)).cpu()
+    r, B = BILAT_RADIUS, BILAT_BAND
+    bands = [(0, bilateral_ref(torch.tensor(img[:B + r]), BILAT_SIGMA_S,
+                               BILAT_SIGMA_R, r)[:B]),
+             (BILAT_SIZE - B, bilateral_ref(
+                 torch.tensor(img[-B - r:]), BILAT_SIGMA_S, BILAT_SIGMA_R,
+                 r)[r:])]
+    bilat_kw = dict(size=BILAT_SIZE, sigma_s=BILAT_SIGMA_S,
+                    sigma_r=BILAT_SIGMA_R, radius=BILAT_RADIUS)
+
+    def run_bilateral(label, **kw):
+        out = run(label, lambda: bilateral.run_hybrid(ex, **bilat_kw, **kw),
+                  bilat_ref, TOL["bilateral"], forced="plan_override" in kw,
+                  profile=label.endswith("profiled"))
+        value = out.value.cpu()
+        for lo, band in bands:
+            torch.testing.assert_close(
+                value[lo:lo + B], band, rtol=5e-3, atol=5e-2,
+                msg=lambda m: f"{label} rows {lo}:{lo + B} against the "
+                              f"direct filter: {m}")
+        print(f"hybrid {label}: rows 0:{B} and {BILAT_SIZE - B}:"
+              f"{BILAT_SIZE} match the direct filter (5e-3, 5e-2)")
+
+    cost_model.reset_profiles()
+    for label in ("cold", "warm", "profiled"):
+        run_bilateral(f"bilateral {label}")
+    chunk = BILAT_SIZE // ex.n_chunks
+    run_bilateral("bilateral forced",
+                  plan_override=[BILAT_SIZE - 2 * chunk, 2 * chunk])
+
+    # sort: exact against np.sort; then the leaf sorter on the card
+    keys = sort.make_inputs(SORT_N)
+    sort_ref = torch.from_numpy(np.sort(keys))
+    cost_model.reset_profiles()
+    for label in ("cold", "warm"):
+        run(f"sort {label}", lambda: sort.run_hybrid(
+            ex, n=SORT_N, n_bins=SORT_BINS), sort_ref, 0)
+    run("sort profiled", lambda: sort.run_hybrid(
+        ex, n=SORT_N, n_bins=SORT_BINS), sort_ref, 0, profile=True)
+    run("sort forced", lambda: sort.run_hybrid(
+        ex, n=SORT_N, n_bins=SORT_BINS,
+        plan_override=[SORT_BINS - SORT_BINS // 8, SORT_BINS // 8]),
+        sort_ref, 0, forced=True)
+
+    keys_gpu = common.to_device(keys, dev)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    value = leaf_sort_bitonic(keys_gpu, tile=SORT_TILE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = common.launch_counts()
+    per_call["sort leaf"] = counts
+    print(f"hybrid sort leaf: launches={counts}")
+    if counts["sort_bitonic"] <= 0:
+        raise AssertionError("sort leaf: sort_bitonic was not launched")
+    if not (torch.equal(value, torch.sort(keys_gpu).values)
+            and torch.equal(value.cpu(), sort_ref)):
+        raise AssertionError("sort leaf: value differs from torch.sort")
+    print(f"hybrid sort leaf: rows=({SORT_N // SORT_TILE}, {SORT_TILE}) "
+          f"wall_s={wall!r} value ok (exact against torch.sort and "
+          f"np.sort)")
+
     for workload in OWN_KERNEL:
         if per_call[f"{workload} cold"]["probe_add_one"] <= 0:
             raise AssertionError(f"{workload} cold: the calibration did "
@@ -436,7 +642,8 @@ def main() -> None:
     del flush
 
     per_call = hybrid_phase(torch, np)
-    # the main path: the cold and the warm call of each workload
+    # the main path: the cold and the warm call of each workload, and
+    # sort's leaf sorter
     for r in rows:
         r["launches_per_call"] = {label: c[r["name"]]
                                   for label, c in per_call.items()}

@@ -51,6 +51,11 @@ from repro_torch.core.metrics import HybridResult
 from repro_torch.kernels.common import sync
 from repro_torch.obs import get_recorder
 
+# torch.profiler markers of a work-shared call's timed windows: the
+# chunk run (makespan) and the merge
+TIMED_RUN = "hybrid:timed_run"
+TIMED_MERGE = "hybrid:timed_merge"
+
 
 @dataclass
 class DeviceGroup:
@@ -308,16 +313,21 @@ class HybridExecutor:
         # chunk of their own this call (cold first calls included)
         trusted = [g.name for g in self.groups
                    if self.tracker.stats[g.name].n_obs > 0]
-        trace = AsyncChunkExecutor(self.groups, steal=steal).run(
-            units, run_share, chunk_units, mode, unit_time_priors=priors,
-            whole_shares=whole_shares, trusted_priors=trusted)
+        # the timed windows carry torch.profiler markers, so a profile of
+        # the call can tell them from its set-up and warmup
+        with torch.profiler.record_function(TIMED_RUN):
+            trace = AsyncChunkExecutor(self.groups, steal=steal).run(
+                units, run_share, chunk_units, mode,
+                unit_time_priors=priors, whole_shares=whole_shares,
+                trusted_priors=trusted)
         self._trace_chunks(workload, trace)
 
         if do_warmup:
             combine(list(trace.outputs))     # warm the merge path too
-        t0 = time.perf_counter()
-        value = combine(list(trace.outputs))
-        merge_t = time.perf_counter() - t0
+        with torch.profiler.record_function(TIMED_MERGE):
+            t0 = time.perf_counter()
+            value = combine(list(trace.outputs))
+            merge_t = time.perf_counter() - t0
 
         # measured makespan: concurrent span + un-hidden comm + merge
         hybrid_time = trace.makespan + comm_cost + merge_t

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "hist_i32": [_P, _LL, _I, _I, _P, _P],
     "spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "probe_add_one_f32": [_P, _P, _I, _P],
+    "sort_rows_f32": [_P, _P, _LL, _I, _P],
+    "bilateral_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -55,7 +57,8 @@ _LIB_LOCK = threading.Lock()
 _BUILD_LOG = ""
 
 LAUNCHES: Dict[str, int] = {"conv2d": 0, "hist": 0, "spmv_ell": 0,
-                            "probe_add_one": 0}
+                            "probe_add_one": 0, "sort_bitonic": 0,
+                            "bilateral": 0}
 _COUNT_LOCK = threading.Lock()
 
 

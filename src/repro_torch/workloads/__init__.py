@@ -5,4 +5,4 @@ plus its input generator, which makes the same numpy inputs from the
 same seed as the reference's.
 """
 
-PORTED_WORKLOADS = ["hist", "spmv", "conv"]
+PORTED_WORKLOADS = ["hist", "spmv", "conv", "sort", "bilateral"]

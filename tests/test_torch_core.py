@@ -9,6 +9,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 from dataclasses import asdict
 
 import numpy as np
@@ -16,10 +17,11 @@ import pytest
 import torch
 
 from repro.core import async_executor as ref_async
+from repro.core import host_offload as ref_offload
 from repro.core import metrics as ref_metrics
 from repro.core import work_sharing as ref_ws
 from repro.core.hybrid_executor import DeviceGroup as RefGroup
-from repro_torch.core import async_executor, cost_model, metrics
+from repro_torch.core import async_executor, cost_model, host_offload, metrics
 from repro_torch.core import work_sharing as ws
 from repro_torch.core.calibration import (CalibrationCache,
                                           get_calibration_cache, measure)
@@ -198,12 +200,73 @@ def test_executor_traces_chunks():
     assert {e["track"] for e in spans} <= {"hybrid:accel", "hybrid:host"}
 
 
+def test_executor_marks_its_timed_windows_for_the_profiler():
+    """The chunk run and the merge carry one torch.profiler marker each,
+    so a profile can tell the timed windows from set-up and warmup."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.hybrid_executor import TIMED_MERGE, TIMED_RUN
+    ex = HybridExecutor(device="cpu", n_chunks=4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ex.run_work_shared("t", 8, lambda g, s, k: torch.zeros(k),
+                           combine=lambda outs: torch.cat(outs))
+    names = [e.name for e in prof.events()]
+    assert names.count(TIMED_RUN) == names.count(TIMED_MERGE) == 1
+
+
 def test_plan_override_must_cover_the_work():
     ex = HybridExecutor(device="cpu", n_chunks=4)
     with pytest.raises(ValueError, match="cover"):
         ex.run_work_shared("t", 8, lambda g, s, k: torch.zeros(k),
                            combine=lambda outs: torch.cat(outs),
                            plan_override=[4, 2])
+
+
+@pytest.mark.parametrize("sigma_s,sigma_r,radius,levels", [
+    (2.0, 25.0, 2, 256), (3.0, 30.0, 7, 256), (1.5, 10.0, 1, 64)])
+def test_bilateral_luts_are_the_references_bit_for_bit(sigma_s, sigma_r,
+                                                       radius, levels):
+    mine = host_offload.bilateral_luts(sigma_s, sigma_r, radius, levels)
+    ref = ref_offload.bilateral_luts(sigma_s, sigma_r, radius, levels)
+    for m, r in zip(mine, ref):
+        assert m.dtype == r.dtype == np.float32
+        np.testing.assert_array_equal(m, r)
+
+
+def test_host_prng_stream_is_the_references():
+    np.testing.assert_array_equal(host_offload.host_prng_stream(3, 1000),
+                                  ref_offload.host_prng_stream(3, 1000))
+
+
+def test_host_task_pool_returns_results_and_records_timings():
+    pool = host_offload.HostTaskPool()
+    try:
+        futs = {name: pool.submit(name, host_offload.bilateral_luts, 2.0,
+                                  25.0, r)
+                for name, r in (("r1", 1), ("r3", 3))}
+        sp, rl = futs["r3"].result()
+        assert sp.shape == (7, 7) and rl.shape == (256,)
+        assert futs["r1"].result()[0].shape == (3, 3)
+        threads = {t.name for t in threading.enumerate()}
+        assert any(n.startswith("host-task") for n in threads)
+    finally:
+        pool.shutdown()
+    assert set(pool.timings) == {"r1", "r3"}
+    assert all(t >= 0.0 for t in pool.timings.values())
+
+
+def test_double_buffer_yields_in_order_and_raises_the_producers_error():
+    assert list(host_offload.DoubleBuffer(iter(range(7)))) == list(range(7))
+
+    def broken():
+        yield 1
+        raise KeyError("producer")
+
+    out = []
+    with pytest.raises(KeyError, match="producer"):
+        for x in host_offload.DoubleBuffer(broken()):
+            out.append(x)
+    assert out == [1]
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -6,19 +6,24 @@ and its port.  On the CPU a port wrapper runs its CPU peer (shift-add,
 bincount, the ELL gather-sum); the hand-written CUDA kernels run only
 on a GPU, in ``test_torch_cuda.py``.
 The reference's ``conv2d_pallas`` does not run on this jax version, so
-conv is held against ``conv2d_ref`` and ``conv2d_shift_add``; hist and
-spmv are also held against their Pallas kernels in interpret mode.
+conv is held against ``conv2d_ref`` and ``conv2d_shift_add``; hist,
+spmv, the row sorter and the bilateral filter are also held against
+their Pallas kernels in interpret mode.
 
-Tolerances are the reference's own (tests/test_kernels.py): hist exact
-(integer counts), spmv 2e-5 (f32 sums in another order), conv 2e-4
-(K^2 f32 products summed in another order), binned spmv against the
-dense product 1e-4.
+Tolerances are the reference's own (tests/test_kernels.py): hist and
+sort exact (integer counts; a sort is a permutation), spmv 2e-5 (f32
+sums in another order), conv 2e-4 (K^2 f32 products summed in another
+order), bilateral 1e-3 (the LUT filter against the direct one, and f32
+sums in another order), binned spmv against the dense product 1e-4.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.host_offload import bilateral_luts as jax_luts
+from repro.kernels.bilateral.bilateral import bilateral_pallas
+from repro.kernels.bilateral.ref import bilateral_ref as jax_bilateral_ref
 from repro.kernels.conv2d.conv2d import conv2d_shift_add as jax_shift_add
 from repro.kernels.conv2d.ref import conv2d_ref as jax_conv_ref
 from repro.kernels.hist.hist import hist_pallas
@@ -26,24 +31,40 @@ from repro.kernels.hist.ref import hist_ref as jax_hist_ref
 from repro.kernels.spmv import ops as jax_spmv_ops
 from repro.kernels.spmv.ref import spmv_coo_ref as jax_coo_ref
 from repro.kernels.spmv.ref import spmv_ell_ref as jax_ell_ref
+from repro.kernels.sort_bitonic.sort_bitonic import sort_rows_pallas
 from repro.kernels.spmv.spmv import spmv_ell_pallas
+from repro.workloads import sort as ref_sort
 from repro_torch.core.cost_model import probe_add_one
+from repro_torch.core.host_offload import bilateral_luts
 from repro_torch.kernels import common
+from repro_torch.kernels.bilateral import ops as bilateral_ops
+from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
+                                                     bilateral_lut_torch)
+from repro_torch.kernels.bilateral.ref import bilateral_ref
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d.conv2d import conv2d_cuda, conv2d_shift_add
 from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.kernels.hist import ops as hist_ops
 from repro_torch.kernels.hist.hist import hist_bincount, hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
+from repro_torch.kernels.sort_bitonic import ops as sort_ops
+from repro_torch.kernels.sort_bitonic.ref import sort_rows_ref
+from repro_torch.kernels.sort_bitonic.sort_bitonic import (
+    bitonic_rows_torch, sort_rows_cuda)
 from repro_torch.kernels.spmv import ops as spmv_ops
 from repro_torch.kernels.spmv.ref import spmv_ell_ref
 from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
+from repro_torch.workloads import sort as sort_w
 
 CONV_IMPLS = {"ref": conv2d_ref, "ops": conv_ops.conv2d,
               "shift_add": conv2d_shift_add}
 HIST_IMPLS = {"ref": hist_ref, "ops": hist_ops.histogram,
               "bincount": hist_bincount}
 ELL_IMPLS = {"ref": spmv_ell_ref, "ops": spmv_ops.spmv_ell}
+SORT_IMPLS = {"ref": sort_rows_ref, "ops": sort_ops.sort_rows,
+              "bitonic": bitonic_rows_torch}
+BILAT_IMPLS = {"ops": bilateral_ops.bilateral_filter,
+               "lut": bilateral_lut_torch}
 
 
 def _t(a):
@@ -147,6 +168,77 @@ def test_spmv_binned_end_to_end():
                                rtol=1e-4, atol=1e-4)
 
 
+# --------------------------------------------------------------- sort
+@pytest.mark.parametrize("impl", sorted(SORT_IMPLS))
+@pytest.mark.parametrize("G,L", [(10, 16), (70, 64), (33, 256)])
+def test_sort_rows_matches_reference(G, L, impl):
+    x = np.random.default_rng(G * L).standard_normal((G, L)).astype(
+        np.float32)
+    out = SORT_IMPLS[impl](_t(x)).numpy()
+    np.testing.assert_array_equal(out, np.asarray(
+        sort_rows_pallas(jnp.asarray(x), row_tile=32, interpret=True)))
+
+
+@pytest.mark.parametrize("impl", sorted(SORT_IMPLS))
+def test_sort_rows_duplicates_infs_and_signed_zeros(impl):
+    """Rows the leaf sorter meets: +inf padding, -inf, duplicates and
+    -0.0 beside 0.0 (equal under ==, which is what a sort orders by)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((6, 128)).astype(np.float32)
+    x[0, 100:] = np.inf
+    x[1, :20] = -np.inf
+    x[1, 20:40] = np.inf
+    x[2] = np.round(x[2])
+    x[3, ::2], x[3, 1::2] = -0.0, 0.0
+    x[4] = 1.5
+    out = SORT_IMPLS[impl](_t(x))
+    assert torch.equal(out, torch.from_numpy(np.sort(x, axis=1)))
+    assert torch.equal(out, torch.tensor(np.asarray(sort_rows_pallas(
+        jnp.asarray(x), row_tile=32, interpret=True))))
+
+
+@pytest.mark.parametrize("n,tile", [(4096, 1024), (3000, 256), (5, 16)])
+def test_leaf_sort_bitonic_matches_reference(n, tile):
+    x = np.random.default_rng(n).random(n, dtype=np.float32)
+    out = sort_w.leaf_sort_bitonic(_t(x), tile=tile)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(
+        ref_sort.leaf_sort_bitonic(jnp.asarray(x), tile=tile)))
+
+
+# ---------------------------------------------------------- bilateral
+@pytest.mark.parametrize("impl", sorted(BILAT_IMPLS))
+@pytest.mark.parametrize("H,W,radius", [(64, 48, 2), (37, 53, 3)])
+def test_bilateral_lut_matches_reference(H, W, radius, impl):
+    img = (np.random.default_rng(H * W).random((H, W)) * 255).astype(
+        np.float32)
+    sp, rl = bilateral_luts(2.0, 25.0, radius)
+    out = BILAT_IMPLS[impl](_t(img), _t(sp), _t(rl)).numpy()
+    ref = bilateral_pallas(jnp.asarray(img), jnp.asarray(sp),
+                           jnp.asarray(rl), row_tile=16, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("H,W,radius", [(64, 48, 2), (37, 53, 3)])
+def test_bilateral_direct_matches_reference(H, W, radius):
+    img = (np.random.default_rng(H + W).random((H, W)) * 255).astype(
+        np.float32)
+    out = bilateral_ref(_t(img), 2.0, 25.0, radius).numpy()
+    np.testing.assert_allclose(out, np.asarray(jax_bilateral_ref(
+        jnp.asarray(img), 2.0, 25.0, radius)), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(
+        bilateral_ops.bilateral(_t(img), 2.0, 25.0, radius).numpy(), out,
+        rtol=5e-3, atol=5e-2)
+    assert torch.equal(
+        bilateral_ops.bilateral(_t(img), 2.0, 25.0, radius,
+                                use_kernel=False), _t(out))
+
+
+def test_bilateral_luts_are_the_references():
+    for args in ((2.0, 25.0, 2), (3.0, 30.0, 7)):
+        for mine, ref in zip(bilateral_luts(*args), jax_luts(*args)):
+            np.testing.assert_array_equal(mine, ref)
+
+
 # -------------------------------------------------------------- probe
 def test_probe_add_one_cpu():
     t = _t(np.random.default_rng(5).standard_normal((128, 128)).astype(
@@ -155,7 +247,8 @@ def test_probe_add_one_cpu():
 
 
 # ------------------------------------------- dispatch and the library
-@pytest.mark.parametrize("call", ["conv2d", "hist", "spmv_ell"])
+@pytest.mark.parametrize("call", ["conv2d", "hist", "spmv_ell",
+                                  "sort_bitonic", "bilateral"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper never falls back: a tensor that is not on a GPU
     is refused before any pointer leaves Python."""
@@ -165,16 +258,38 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
             conv2d_cuda(x, torch.zeros((3, 3)))
         elif call == "hist":
             hist_cuda(torch.zeros(8, dtype=torch.int32), 4)
-        else:
+        elif call == "spmv_ell":
             spmv_ell_cuda(x, torch.zeros((4, 4), dtype=torch.int32),
                           torch.zeros(4))
+        elif call == "sort_bitonic":
+            sort_rows_cuda(x)
+        else:
+            bilateral_cuda(x, torch.zeros((3, 3)), torch.zeros(256))
 
 
-def test_ops_refuse_other_configs():
+_OTHER_CONFIG = {"impl": "pallas"}
+OPS_CALLS = {
+    "conv2d": lambda: conv_ops.conv2d(torch.zeros((8, 8)),
+                                      torch.zeros((3, 3)),
+                                      config=_OTHER_CONFIG),
+    "histogram": lambda: hist_ops.histogram(
+        torch.zeros(8, dtype=torch.int32), 4, config=_OTHER_CONFIG),
+    "spmv_ell": lambda: spmv_ops.spmv_ell(
+        torch.zeros((4, 4)), torch.zeros((4, 4), dtype=torch.int32),
+        torch.zeros(4), config=_OTHER_CONFIG),
+    "sort_rows": lambda: sort_ops.sort_rows(torch.zeros((4, 8)),
+                                            config=_OTHER_CONFIG),
+    "bilateral_filter": lambda: bilateral_ops.bilateral_filter(
+        torch.zeros((8, 8)), torch.zeros((3, 3)), torch.zeros(256),
+        config=_OTHER_CONFIG),
+}
+
+
+@pytest.mark.parametrize("call", sorted(OPS_CALLS))
+def test_ops_refuse_other_configs(call):
     """Only the default tiling exists until autotuning is ported."""
-    x = torch.zeros((8, 8))
     with pytest.raises(ValueError):
-        conv_ops.conv2d(x, torch.zeros((3, 3)), config={"impl": "pallas"})
+        OPS_CALLS[call]()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

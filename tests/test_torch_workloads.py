@@ -3,10 +3,14 @@ JAX reference's, on the CPU.
 
 Both packages run ``run_hybrid`` on a simulated CPU pair (the port's
 with ``device="cpu"``, asked for explicitly) from the same seeded numpy
-inputs.  Tolerances: hist exact (integer counts); conv 2e-4 (the
-port's host peer is the shift-add, the reference's default the XLA
-convolution: K^2 f32 products summed in another order); spmv 1e-4
-against the reference's value and against the dense product in f64.
+inputs.  Tolerances: hist and sort exact (integer counts; a sort is a
+permutation); conv 2e-4 (the port's host peer is the shift-add, the
+reference's default the XLA convolution: K^2 f32 products summed in
+another order); spmv 1e-4 against the reference's value and against
+the dense product in f64; bilateral 1e-3 against the reference's LUT
+filter (f32 sums in another order), and the reference test's 5e-3 /
+5e-2 against the direct filter, whose range weights are not
+quantised to the LUT's.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,17 +18,25 @@ import pytest
 import torch
 
 from repro.core.hybrid_executor import HybridExecutor as RefExecutor
+from repro.kernels.bilateral.ref import bilateral_ref as jax_bilateral_ref
+from repro.workloads import bilateral as ref_bilateral
 from repro.workloads import conv as ref_conv
 from repro.workloads import hist as ref_hist
+from repro.workloads import sort as ref_sort
 from repro.workloads import spmv as ref_spmv
 from repro_torch.core.hybrid_executor import HybridExecutor
-from repro_torch.workloads import conv, hist, spmv
+from repro_torch.kernels.bilateral.ref import bilateral_ref
+from repro_torch.workloads import bilateral, conv, hist, sort, spmv
 
 SIZES = {"conv": dict(size=96, ksize=5), "hist": dict(n=1 << 14, n_bins=64),
-         "spmv": dict(n=512, density=0.02)}
+         "spmv": dict(n=512, density=0.02),
+         "sort": dict(n=1 << 12, n_bins=16),
+         "bilateral": dict(size=64, sigma_s=2.0, sigma_r=25.0, radius=2)}
 MODULES = {"conv": (conv, ref_conv), "hist": (hist, ref_hist),
-           "spmv": (spmv, ref_spmv)}
-TOL = {"conv": 2e-4, "hist": 0.0, "spmv": 1e-4}
+           "spmv": (spmv, ref_spmv), "sort": (sort, ref_sort),
+           "bilateral": (bilateral, ref_bilateral)}
+TOL = {"conv": 2e-4, "hist": 0.0, "spmv": 1e-4, "sort": 0.0,
+       "bilateral": 1e-3}
 
 
 def _port():
@@ -49,6 +61,10 @@ def test_inputs_are_the_references_bit_for_bit():
                                                                   64)))
     np.testing.assert_array_equal(spmv.make_matrix(256, 0.02),
                                   ref_spmv.make_matrix(256, 0.02))
+    np.testing.assert_array_equal(sort.make_inputs(1 << 12),
+                                  np.asarray(ref_sort.make_inputs(1 << 12)))
+    np.testing.assert_array_equal(bilateral.make_inputs(64),
+                                  np.asarray(ref_bilateral.make_inputs(64)))
     # the x that the reference's make_share_spec draws inline
     np.testing.assert_array_equal(
         spmv.make_vector(256), np.asarray(jnp.asarray(
@@ -74,6 +90,21 @@ def test_spmv_value_matches_dense_product():
     np.testing.assert_allclose(out.value.numpy(),
                                A @ spmv.make_vector(512), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_sort_value_matches_np_sort():
+    out = sort.run_hybrid(_port(), n=1 << 12, n_bins=16)
+    np.testing.assert_array_equal(out.value.numpy(),
+                                  np.sort(sort.make_inputs(1 << 12)))
+
+
+def test_bilateral_value_matches_direct_filter():
+    out = bilateral.run_hybrid(_port(), **SIZES["bilateral"]).value.numpy()
+    img = bilateral.make_inputs(64)
+    for ref in (bilateral_ref(torch.from_numpy(img), 2.0, 25.0, 2).numpy(),
+                np.asarray(jax_bilateral_ref(jnp.asarray(img), 2.0, 25.0,
+                                             2))):
+        np.testing.assert_allclose(out, ref, rtol=5e-3, atol=5e-2)
 
 
 @pytest.mark.parametrize("name", sorted(MODULES))
