@@ -274,8 +274,20 @@ def kernel_phase(torch, np, dev, flush):
         out = sort_rows_cuda(xt)
         check(torch, "sort_bitonic", out, bitonic_rows_torch(xt),
               f"G={G} L={L}")
-        check(torch, "sort_bitonic", out, torch.sort(xt, dim=1).values,
+        lib = torch.sort(xt, dim=1).values
+        check(torch, "sort_bitonic", out, lib,
               f"G={G} L={L} against torch.sort")
+        if G > 2:
+            # == cannot tell -0.0 from 0.0: report (not assert) whether
+            # the signed zeros come out in the plain network's order and
+            # in torch.sort's
+            bits = out[2].view(torch.int32)
+            plain = torch.equal(bits, bitonic_rows_torch(xt)[2].view(
+                torch.int32))
+            same = torch.equal(bits, lib[2].view(torch.int32))
+            print(f"kernel sort_bitonic G={G} L={L}: -0.0/0.0 row bitwise "
+                  f"equal to the plain network: {plain}, to torch.sort: "
+                  f"{same}", flush=True)
     x = torch.tensor(sort_w.make_inputs(SORT_N), device=dev).reshape(
         -1, SORT_TILE)
     G, L = x.shape

@@ -18,9 +18,11 @@
 // pairs per stage, with a __syncthreads() between stages.  The pair of
 // lane i is i ^ j, its direction ascending where (i & k) == 0.  A pair
 // swaps only when one value is strictly less than the other (no fminf /
-// fmaxf): equal keys, -0.0 beside 0.0 and +inf keep a total order the
-// plain version shares, and the result equals torch.sort's.  Inputs
-// hold no NaN.  Simple first: no register or warp-shuffle stages.
+// fmaxf): the plain version makes the same exchanges, and the result
+// equals torch.sort's under == (+inf padding included).  -0.0 and 0.0
+// compare equal, so they stay where the network leaves them, which need
+// not be torch.sort's order.  Inputs hold no NaN.  Simple first: no
+// register or warp-shuffle stages.
 #include <cuda_runtime.h>
 
 namespace {

@@ -11,32 +11,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.cost_model import CostTerms
 from repro_torch.core.host_offload import bilateral_luts
-from repro_torch.kernels.bilateral.bilateral import (TILE_H, TILE_W,
-                                                     bilateral_cuda,
+from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                      bilateral_lut_torch)
-from repro_torch.kernels.bilateral.ref import bilateral_ref
 
 Config = dict
-DEFAULT_CONFIG: Config = {"impl": "cuda", "tile_h": TILE_H,
-                          "tile_w": TILE_W}
-
-
-def cost_terms(cfg: Config, H: int, W: int, K: int) -> CostTerms:
-    """Analytic work of one implementation at one shape.  K is the LUT
-    window (2*radius+1): K^2 weighted taps per pixel."""
-    flops = 6.0 * H * W * K * K                    # weight, mul, 2 sums
-    if cfg.get("impl") == "lut":
-        # K^2 shifted lookups, each streaming the image
-        return CostTerms(flops=flops, bytes=4.0 * 2 * H * W * K * K,
-                         steps=K * K)
-    th = int(cfg.get("tile_h", TILE_H))
-    tw = int(cfg.get("tile_w", TILE_W))
-    tiles = -(-H // th) * -(-W // tw)
-    halo = (th + K - 1) * (tw + K - 1)             # per-tile read
-    return CostTerms(flops=flops, bytes=4.0 * (tiles * halo + H * W),
-                     steps=1)
+DEFAULT_CONFIG: Config = {"impl": "cuda"}
 
 
 def bilateral_filter(img: torch.Tensor, sp: torch.Tensor, rl: torch.Tensor,
@@ -54,11 +34,9 @@ def bilateral_filter(img: torch.Tensor, sp: torch.Tensor, rl: torch.Tensor,
 
 
 def bilateral(img: torch.Tensor, sigma_s: float, sigma_r: float,
-              radius: int, *, use_kernel: bool = True) -> torch.Tensor:
+              radius: int) -> torch.Tensor:
     """The whole pipeline: LUTs built on the host, filtering on the
-    image's device; ``use_kernel=False`` gives the direct oracle."""
-    if not use_kernel:
-        return bilateral_ref(img, sigma_s, sigma_r, radius)
+    image's device (the direct oracle is ``ref.bilateral_ref``)."""
     sp, rl = bilateral_luts(sigma_s, sigma_r, radius)     # host task
     sp = torch.from_numpy(sp).to(img.device)
     rl = torch.from_numpy(rl).to(img.device)

@@ -7,28 +7,15 @@ kernel's one launch shape.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
-from repro_torch.core.cost_model import CostTerms
 from repro_torch.kernels.sort_bitonic.ref import sort_rows_ref
 from repro_torch.kernels.sort_bitonic.sort_bitonic import sort_rows_cuda
 
 Config = dict
 DEFAULT_CONFIG: Config = {"impl": "cuda"}
-
-
-def cost_terms(cfg: Config, G: int, L: int) -> CostTerms:
-    """Analytic work of one implementation at one shape."""
-    lg = max(math.log2(max(L, 2)), 1.0)
-    if cfg.get("impl") == "torch_sort":
-        # a comparison sort: log2(L) passes over the row
-        return CostTerms(flops=4.0 * G * L * lg, bytes=8.0 * G * L * lg)
-    net = lg * (lg + 1) / 2                        # bitonic stages
-    # every stage runs in shared memory: one read and one write of HBM
-    return CostTerms(flops=4.0 * G * L * net, bytes=8.0 * G * L, steps=1)
 
 
 def sort_rows(x: torch.Tensor, *, config: Optional[Config] = None

@@ -9,7 +9,9 @@ the log2(L)*(log2(L)+1)/2 compare-exchange stages of a bitonic network.
 whole array (the reference's ``_bitonic_rows``): the stride-j partner
 of lane i is i^j, taken by a reshape and flip, never a gather.  Both
 swap a pair only when one value is strictly less than the other, so
-they give the same permutation, bit for bit.
+they run the same exchanges.  Their results equal ``torch.sort``'s
+under ``==``; -0.0 and 0.0 compare equal, so the network leaves them
+in its own order, which need not be ``torch.sort``'s.
 """
 from __future__ import annotations
 

@@ -71,9 +71,8 @@ def run_hybrid(ex: HybridExecutor, size: int = 512, sigma_s: float = 3.0,
         sync_device(dest)
         return value
 
-    # cost prior for ONE output row (kernels/bilateral/ops cost_terms per
-    # row: ~6 ops and two LUT gathers per tap) so a cold cache plans
-    # with zero probe runs
+    # cost prior for ONE output row (~6 ops and two LUT gathers per
+    # tap) so a cold cache plans with zero probe runs
     unit_cost = CostTerms(flops=6.0 * size * K * K, bytes=8.0 * size * K * K)
     ex.calibrate(lambda g, n: run_share(g, 0, n), probe_units=max(H // 8, 1),
                  workload=f"Bilat/{size}x{radius}", unit_cost=unit_cost)

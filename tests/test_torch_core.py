@@ -233,11 +233,6 @@ def test_bilateral_luts_are_the_references_bit_for_bit(sigma_s, sigma_r,
         np.testing.assert_array_equal(m, r)
 
 
-def test_host_prng_stream_is_the_references():
-    np.testing.assert_array_equal(host_offload.host_prng_stream(3, 1000),
-                                  ref_offload.host_prng_stream(3, 1000))
-
-
 def test_host_task_pool_returns_results_and_records_timings():
     pool = host_offload.HostTaskPool()
     try:
@@ -255,18 +250,17 @@ def test_host_task_pool_returns_results_and_records_timings():
     assert all(t >= 0.0 for t in pool.timings.values())
 
 
-def test_double_buffer_yields_in_order_and_raises_the_producers_error():
-    assert list(host_offload.DoubleBuffer(iter(range(7)))) == list(range(7))
-
-    def broken():
-        yield 1
-        raise KeyError("producer")
-
-    out = []
-    with pytest.raises(KeyError, match="producer"):
-        for x in host_offload.DoubleBuffer(broken()):
-            out.append(x)
-    assert out == [1]
+def test_host_task_pool_raises_a_tasks_error_and_times_only_results():
+    pool = host_offload.HostTaskPool()
+    try:
+        bad = pool.submit("bad", int, "not a number")
+        with pytest.raises(ValueError):
+            bad.result()
+        assert pool.submit("good", host_offload.bilateral_luts, 2.0, 25.0,
+                           1).result()[0].shape == (3, 3)
+    finally:
+        pool.shutdown()
+    assert set(pool.timings) == {"good"}
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -228,9 +228,6 @@ def test_bilateral_direct_matches_reference(H, W, radius):
     np.testing.assert_allclose(
         bilateral_ops.bilateral(_t(img), 2.0, 25.0, radius).numpy(), out,
         rtol=5e-3, atol=5e-2)
-    assert torch.equal(
-        bilateral_ops.bilateral(_t(img), 2.0, 25.0, radius,
-                                use_kernel=False), _t(out))
 
 
 def test_bilateral_luts_are_the_references():

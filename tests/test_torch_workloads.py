@@ -12,6 +12,8 @@ filter (f32 sums in another order), and the reference test's 5e-3 /
 5e-2 against the direct filter, whose range weights are not
 quantised to the LUT's.
 """
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,6 +107,18 @@ def test_bilateral_value_matches_direct_filter():
                 np.asarray(jax_bilateral_ref(jnp.asarray(img), 2.0, 25.0,
                                              2))):
         np.testing.assert_allclose(out, ref, rtol=5e-3, atol=5e-2)
+
+
+def test_bilateral_shuts_its_host_pool_when_the_lut_task_fails(
+        monkeypatch):
+    def broken(*args):
+        raise RuntimeError("lut task")
+
+    monkeypatch.setattr(bilateral, "bilateral_luts", broken)
+    with pytest.raises(RuntimeError, match="lut task"):
+        bilateral.run_hybrid(_port(), **SIZES["bilateral"])
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("host-task")]
 
 
 @pytest.mark.parametrize("name", sorted(MODULES))
