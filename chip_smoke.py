@@ -20,7 +20,19 @@
    (``sort leaf``: the bitonic kernel over the keys in 1024-wide rows);
    checks every value against a reference, and checks that every
    kernel on the path was launched.
-5. Prints the kernels' numbers as one JSON line, the card line again,
+5. LM phase: kimi-k2 at its full width, cut to depth 2 (the dense first
+   layer and one MoE layer, ~20 B parameters, ~40 GB of bf16 weights
+   from seed 0), serves a batch of 4 prompts of 1024 tokens through
+   ``serve_step.generate`` (prefill + 16 greedy decode steps): weights'
+   bytes, peak memory, K7/K8 launches per ``generate``, per prefill and
+   per decode step, prefill time, decode time per token, the GPU's idle
+   share in one profiled decode step; then the same greedy run with K7
+   and K8 swapped for their plain versions, whose tokens the kernel
+   path must give under the margin rule (``serve/plain_check.py``);
+   then K7 and K8 against their plain versions at the main path's
+   shapes (and ragged ones), timed beside
+   ``F.scaled_dot_product_attention`` and ``torch.bmm``.
+6. Prints the kernels' numbers as one JSON line, the card line again,
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any mismatch raises and the script exits non-zero.  It also exits
@@ -43,10 +55,14 @@ SRC = os.path.join(ROOT, "src")
 
 # H100 SXM data-sheet peaks, the bound of every kernel time below
 PEAK_F32_FLOPS = 67e12           # f32 on the CUDA cores (no tensor cores)
+PEAK_BF16_FLOPS = 989e12         # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12             # HBM3 bytes/s
 
+# attention and gmm in bf16: one rounding of the output to bf16 (relative
+# 2^-8, a few ulp at |out| <= 1) and f32 sums in another order
 TOL = {"conv2d": 2e-4, "hist": 0, "spmv_ell": 2e-5, "probe_add_one": 0,
-       "sort_bitonic": 0, "bilateral": 1e-3}
+       "sort_bitonic": 0, "bilateral": 1e-3, "flash_attention": 1e-2,
+       "gmm": 1e-2}
 SOURCE = {
     "conv2d": ("src/repro_torch/csrc/conv2d.cu",
                "src/repro/kernels/conv2d/conv2d.py:41"),
@@ -60,6 +76,10 @@ SOURCE = {
                      "src/repro/kernels/sort_bitonic/sort_bitonic.py:58"),
     "bilateral": ("src/repro_torch/csrc/bilateral.cu",
                   "src/repro/kernels/bilateral/bilateral.py:66"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:75"),
+    "gmm": ("src/repro_torch/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:40"),
 }
 
 CONV_SIZE, CONV_K = 3600, 15
@@ -68,6 +88,8 @@ SPMV_N, SPMV_DENSITY = 8192, 0.01
 SORT_N, SORT_BINS, SORT_TILE = 1 << 24, 64, 1024
 BILAT_SIZE, BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS = 3600, 3.0, 30.0, 7
 BILAT_BAND = 64       # rows held against the direct (exp) filter, per edge
+LM_ARCH, LM_LAYERS = "kimi-k2-1t-a32b", 2
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 16
 
 
 def fail(msg: str) -> None:
@@ -120,6 +142,25 @@ def check(torch, name, out, ref, what) -> float:
     return (out - ref).abs().max().item()
 
 
+def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape,
+               peak_flops=PEAK_F32_FLOPS):
+    """The JSON row of one kernel at the main path's shape; the bound is
+    the larger of its bytes over HBM's rate and its operations over
+    ``peak_flops``."""
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    src, rep = SOURCE[name]
+    r = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": None, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "library_ms": library_ms}
+    print(f"kernel {name} {shape}: err={err:.3g} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']}) library_ms={library_ms}", flush=True)
+    return r
+
+
 def kernel_phase(torch, np, dev, flush):
     from repro_torch.core.cost_model import probe_add_one
     from repro_torch.core.host_offload import bilateral_luts
@@ -142,19 +183,8 @@ def kernel_phase(torch, np, dev, flush):
     rng = np.random.default_rng(7)
     rows = []
 
-    def row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape):
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        src, rep = SOURCE[name]
-        r = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": None, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "library_ms": library_ms}
-        print(f"kernel {name} {shape}: err={err:.3g} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']}) library_ms={library_ms}")
-        rows.append(r)
+    def row(*args):
+        rows.append(kernel_row(*args))
 
     # K1 conv2d: the main path's chunk (225 rows + 14 halo rows of the
     # 3600-wide image, K=15), then ragged shapes (odd H/W, K 3 and 15)
@@ -620,6 +650,243 @@ def hybrid_phase(torch, np):
     return per_call
 
 
+# ---------------------------------------------------------------------------
+# LM phase
+# ---------------------------------------------------------------------------
+def decode_idle(torch, step, params, tok, caches, position):
+    """One decode step under torch.profiler: the GPU's busy time (union
+    of its kernel, copy and memset intervals) inside the step's window
+    (the host's span of the step and its synchronisation)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = "lm:decode_step"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(mark):
+            step(params, tok, caches, position)
+            torch.cuda.synchronize()
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == mark]
+    w0, w1 = min(lo for lo, _ in spans), max(hi for _, hi in spans)
+    inside, by_name = [], {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name == mark \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        lo, hi = max(e.time_range.start, w0), min(e.time_range.end, w1)
+        if hi > lo:
+            inside.append((lo, hi))
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + hi - lo, n + 1)
+    busy = _union_s(inside)
+    if busy <= 0:
+        raise AssertionError("lm decode step: no device time in the window")
+    window = (w1 - w0) / 1e6
+    print(f"lm decode profiled: window_s={window!r} gpu_busy_s={busy!r} "
+          f"gpu_idle_share={1.0 - busy / window!r}")
+    for name, (t, n) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:6]:
+        print(f"lm decode profiled: device {t / 1e3:.3f} ms in {n}  "
+              f"{name[:90]}")
+
+
+def lm_phase(torch, dev):
+    """Serve kimi-k2 (full width, depth 2) through ``generate`` with K7
+    and K8, then with their plain versions; returns the launch counts
+    of the ``generate`` call, its per-prefill and per-step counts, and
+    the model's parameters (the K7/K8 rows use its expert weights)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import common
+    from repro_torch.models import model_zoo
+    from repro_torch.models.param import count_params, param_bytes
+    from repro_torch.serve.plain_check import (MARGIN, check_tokens,
+                                               greedy_with_gaps,
+                                               plain_kernels)
+    from repro_torch.serve.serve_step import (generate, make_prefill_step,
+                                              make_serve_step)
+
+    cfg = registry.get(LM_ARCH).replace(n_layers=LM_LAYERS)
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.n_dense_layers
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    print(f"lm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads}x{cfg.head_dim} experts={m.n_routed} "
+          f"top{m.top_k} d_ff={m.d_ff}/{cfg.d_ff} vocab={cfg.vocab_size} "
+          f"layers={cfg.n_layers} (of 61: the dense layer and {n_moe} MoE) "
+          f"params={count_params(params)} weights_bytes="
+          f"{param_bytes(params)} init_s={time.perf_counter() - t0!r}",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+
+    # the main path: one generate call through K7 and K8
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompt, LM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = common.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    passes = 1 + m.overflow_passes
+    want = {"flash_attention": cfg.n_layers,
+            "gmm": 3 * passes * n_moe * (1 + LM_NEW)}
+    print(f"lm generate: batch={LM_BATCH} prompt={LM_PROMPT} "
+          f"new={LM_NEW} tokens={tuple(toks.shape)} wall_s={wall!r} "
+          f"peak_bytes={peak} launches={counts} predicted={want}",
+          flush=True)
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"lm generate: {name} launched "
+                                 f"{counts[name]} times, predicted {n}")
+    if toks.shape != (LM_BATCH, LM_NEW + 1) or toks.dtype != torch.int32 \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"lm generate: bad tokens {toks}")
+
+    # per call: one prefill, then the decode steps, each synchronised
+    L = LM_PROMPT + LM_NEW
+    per = {}
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg, cache_len=L)
+        step = make_serve_step(cfg)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        tok, caches = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per["prefill"] = common.launch_counts()
+        tok = tok.to(torch.int32)
+        step_s = []
+        for t in range(LM_NEW):
+            common.reset_launches()
+            t0 = time.perf_counter()
+            tok, caches = step(params, tok, caches, LM_PROMPT + t)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per["decode step"] = common.launch_counts()
+        decode_s = statistics.median(step_s)
+        print(f"lm prefill: s={prefill_s!r} tokens_per_s="
+              f"{LM_BATCH * LM_PROMPT / prefill_s!r} "
+              f"launches={per['prefill']}")
+        print(f"lm decode: median_step_s={decode_s!r} "
+              f"min_step_s={min(step_s)!r} tokens_per_s="
+              f"{LM_BATCH / decode_s!r} launches_per_step="
+              f"{per['decode step']}", flush=True)
+        decode_idle(torch, step, params, tok, caches, L - 1)
+        del caches
+
+    # the plain path: the same greedy run with K7 and K8 swapped out
+    common.reset_launches()
+    with plain_kernels():
+        plain, gaps, plain_last = greedy_with_gaps(cfg, params, prompt,
+                                                   LM_NEW)
+    if common.launch_counts()["gmm"] or \
+            common.launch_counts()["flash_attention"]:
+        raise AssertionError("lm plain path launched K7 or K8")
+    _, _, kern_last = greedy_with_gaps(cfg, params, prompt, 0)
+    try:
+        differed = check_tokens(toks, plain, gaps)
+    except AssertionError as e:
+        raise AssertionError(f"lm check: {e}") from None
+    for b, t, gap in differed:
+        print(f"lm: row {b} differs first at token {t} ({int(toks[b, t])} "
+              f"vs {int(plain[b, t])}), plain top-1/top-2 gap {gap!r}")
+    print(f"lm check: {LM_BATCH - len(differed)} of {LM_BATCH} rows equal "
+          f"to the plain path's tokens; the others pass the margin rule "
+          f"(gap < {MARGIN}); last prompt position's logits max |diff| "
+          f"{(kern_last - plain_last).abs().max().item()!r}; min gap "
+          f"{gaps.min().item()!r}", flush=True)
+    return counts, per, cfg, params
+
+
+def lm_kernel_rows(torch, dev, flush, cfg, params):
+    """K7 and K8 against their plain versions at the main path's shapes
+    (the JSON rows: K7 at prefill, K8 at a decode step's up projection)
+    and at ragged shapes, with the library call beside each."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    def check(name, out, ref, what):
+        tol = TOL[name]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol,
+                                   msg=lambda msg: f"{name} {what}: {msg}")
+        return (out.float() - ref.float()).abs().max().item()
+
+    def attn_plain(q, k, v, causal):
+        rep = q.shape[0] // k.shape[0]
+        return attention_ref(q, k.repeat_interleave(rep, 0),
+                             v.repeat_interleave(rep, 0), causal)
+
+    for BH, BHkv, T, S, d, causal in [(8, 4, 100, 100, 80, True),
+                                      (16, 2, 77, 130, 112, False),
+                                      (4, 1, 200, 130, 128, True),
+                                      (6, 3, 65, 65, 32, False)]:
+        q, k, v = randn(BH, T, d), randn(BHkv, S, d), randn(BHkv, S, d)
+        check("flash_attention", flash_attention_cuda(q, k, v, causal),
+              attn_plain(q, k, v, causal), f"BH={BH}/{BHkv} T={T} S={S} "
+              f"d={d} causal={causal}")
+    B, H, Kv, T, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT, \
+        cfg.head_dim
+    q, k, v = randn(B * H, T, d), randn(B * Kv, T, d), randn(B * Kv, T, d)
+    err = check("flash_attention", flash_attention_cuda(q, k, v, True),
+                attn_plain(q, k, v, True), "main path (prefill)")
+    q4, k4, v4 = (t.view(B, -1, T, d) for t in (q, k, v))
+    pairs = T * (T + 1) // 2                      # causal (q, k) pairs
+    rows = [kernel_row(
+        "flash_attention", err,
+        time_ms(torch, lambda: flash_attention_cuda(q, k, v, True), flush),
+        time_ms(torch, lambda: attn_plain(q, k, v, True), flush, iters=10),
+        4.0 * B * H * pairs * d, 2.0 * (2 * B * H + 2 * B * Kv) * T * d,
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), flush),
+        f"BH={B * H}/{B * Kv} T=S={T} d={d} causal", PEAK_BF16_FLOPS)]
+    del q, k, v, q4, k4, v4
+
+    for E, C, D, F_ in [(3, 1, 40, 24), (5, 7, 33, 130), (6, 13, 100, 11),
+                        (2, 200, 64, 72)]:
+        x, w = randn(E, C, D), randn(E, D, F_, scale=D ** -0.5)
+        check("gmm", gmm_cuda(x, w), gmm_torch(x, w),
+              f"E={E} C={C} D={D} F={F_}")
+    ffn = params["stack"]["groups"][0]["l0"]["ffn"]
+    m = cfg.moe
+    C = max(1, int(LM_PROMPT * m.top_k / m.n_routed * m.capacity_factor))
+    # (label, C rows, weight): decode's up projection is the JSON row
+    shapes = [("decode up", LM_BATCH, ffn["w_up"]),
+              ("decode down", LM_BATCH, ffn["w_down"]),
+              ("prefill up", LM_BATCH * C, ffn["w_up"]),
+              ("prefill down", LM_BATCH * C, ffn["w_down"]),
+              ("prefill tail up", LM_BATCH * max(1, C // 4), ffn["w_up"])]
+    for label, c, w in shapes:
+        E, D, F_ = w.shape
+        x = randn(E, c, D)
+        err = check("gmm", gmm_cuda(x, w), gmm_torch(x, w), label)
+        r = kernel_row(
+            "gmm", err, time_ms(torch, lambda: gmm_cuda(x, w), flush),
+            time_ms(torch, lambda: gmm_torch(x, w), flush, iters=10),
+            2.0 * E * c * D * F_, 2.0 * E * (c * D + D * F_ + c * F_),
+            time_ms(torch, lambda: torch.bmm(x, w), flush),
+            f"{label}: E={E} C={c} D={D} F={F_}", PEAK_BF16_FLOPS)
+        if label == "decode up":
+            rows.append(r)
+    return rows
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         fail("src/repro_torch/csrc not found beside this script: run it "
@@ -654,8 +921,16 @@ def main() -> None:
     del flush
 
     per_call = hybrid_phase(torch, np)
-    # the main path: the cold and the warm call of each workload, and
-    # sort's leaf sorter
+    lm_counts, lm_per, lm_cfg, lm_params = lm_phase(torch, dev)
+    per_call["lm generate"] = lm_counts
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    rows += lm_kernel_rows(torch, dev, flush, lm_cfg, lm_params)
+    del flush, lm_params
+    for r in rows[-2:]:
+        r["launches_per_prefill"] = lm_per["prefill"][r["name"]]
+        r["launches_per_decode_step"] = lm_per["decode step"][r["name"]]
+    # the main path: the cold and the warm call of each workload, sort's
+    # leaf sorter and the LM's generate call
     for r in rows:
         r["launches_per_call"] = {label: c[r["name"]]
                                   for label, c in per_call.items()}

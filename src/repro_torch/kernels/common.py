@@ -40,7 +40,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry points of csrc/*.cu: argument types (the trailing stream is a
 # pointer too); every one returns cudaGetLastError() as an int
 _SIGNATURES = {
@@ -50,6 +51,11 @@ _SIGNATURES = {
     "probe_add_one_f32": [_P, _P, _I, _P],
     "sort_rows_f32": [_P, _P, _LL, _I, _P],
     "bilateral_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                             _P],
+    "gmm_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gmm_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -58,7 +64,7 @@ _BUILD_LOG = ""
 
 LAUNCHES: Dict[str, int] = {"conv2d": 0, "hist": 0, "spmv_ell": 0,
                             "probe_add_one": 0, "sort_bitonic": 0,
-                            "bilateral": 0}
+                            "bilateral": 0, "flash_attention": 0, "gmm": 0}
 _COUNT_LOCK = threading.Lock()
 
 

@@ -1,0 +1,64 @@
+"""Grouped (per-expert) matmul, the MoE dense-path hot spot: the
+hand-written CUDA kernel and its plain version.
+
+``gmm_cuda`` launches ``csrc/gmm.cu`` (K8, the port of ``gmm_pallas``):
+one block per (expert, 128-column tile of F, tile of C rows) walks the
+contraction in f32 and stores in x's type.
+
+``gmm_torch`` is the plain version and the CPU peer: the Pallas
+kernel's arithmetic (operands upcast to f32, an f32 product, the result
+cast to x's type), a few experts at a time so that no f32 copy of a
+whole expert weight exists (kimi-k2's is 22.5 GB).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import check_cuda, launch
+
+_ENTRY = {torch.float32: "gmm_f32", torch.bfloat16: "gmm_bf16"}
+_CHUNK = 1 << 28                 # f32 weight elements upcast at a time
+
+
+def _shapes(x: torch.Tensor, w: torch.Tensor):
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
+            or w.shape[1] != x.shape[2]:
+        raise ValueError(f"gmm: need x (E, C, D) and w (E, D, F), got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    E, C, D = x.shape
+    return E, C, D, w.shape[2]
+
+
+def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, D); w: (E, D, F), contiguous, both f32 or both bf16 on
+    one GPU.  Returns (E, C, F) in x's type.  The kernel defines no
+    backward: inputs that require grad raise."""
+    if x.dtype not in _ENTRY:
+        raise ValueError(f"gmm: dtype {x.dtype} not supported")
+    dev = check_cuda("gmm", x, w, dtypes=(x.dtype, x.dtype))
+    if x.requires_grad or w.requires_grad:
+        raise NotImplementedError("gmm: the CUDA kernel has no backward "
+                                  "yet (ROADMAP queue 1, item 10)")
+    E, C, D, F = _shapes(x, w)
+    if E > 65535 or -(-C // 128) > 65535:
+        raise ValueError(f"gmm: E={E}, C={C} exceed the grid's limits")
+    out = torch.empty((E, C, F), dtype=x.dtype, device=dev)
+    if E and C and F:
+        if D:
+            launch("gmm", _ENTRY[x.dtype], dev, x.data_ptr(), w.data_ptr(),
+                   out.data_ptr(), E, C, D, F)
+        else:
+            out.zero_()
+    return out
+
+
+def gmm_torch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's type, f32 inside."""
+    E, C, D, F = _shapes(x, w)
+    out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    step = max(1, _CHUNK // max(D * F, 1))
+    for lo in range(0, E, step):
+        hi = min(lo + step, E)
+        out[lo:hi] = torch.matmul(x[lo:hi].float(),
+                                  w[lo:hi].float()).to(x.dtype)
+    return out

@@ -1,0 +1,160 @@
+"""Attention: MHA/GQA/MQA with RoPE, sliding-window, QK-norm, KV caches.
+
+Two entry points:
+  * ``attention(...)``            — full-sequence (train / prefill)
+  * ``attention_decode(...)``     — single-token step against a KV cache
+
+Plain causal (or unmasked) attention goes through
+``kernels.flash_attention.ops.sdpa``: K7 on the GPU.  Sliding windows
+and logit softcaps keep the grouped-einsum ``_sdpa``, and so does the
+decode step, as in the reference.  There is no mesh here, so the
+reference's ``kv_repeat`` (KV heads repeated to shard over a model
+axis) is always 1 and is left out; cross-attention comes with the
+encoder-decoder slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layers import (apply_rope, init_linear, linear,
+                                       rms_norm_simple, softmax)
+from repro_torch.models.param import ones_init
+
+
+def init_attention(gen, cfg, dtype):
+    dh = cfg.head_dim_()
+    p = {
+        "wq": init_linear(gen, cfg.d_model, cfg.n_heads * dh, dtype,
+                          cfg.use_bias),
+        "wk": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype,
+                          cfg.use_bias),
+        "wv": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype,
+                          cfg.use_bias),
+        "wo": init_linear(gen, cfg.n_heads * dh, cfg.d_model, dtype,
+                          cfg.use_bias),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ones_init((dh,), gen.device)
+        p["k_norm"] = ones_init((dh,), gen.device)
+    return p
+
+
+def _qkv(params, x, cfg, sin, cos):
+    B, T, _ = x.shape
+    dh = cfg.head_dim_()
+    q = linear(params["wq"], x).reshape(B, T, cfg.n_heads, dh)
+    k = linear(params["wk"], x).reshape(B, T, cfg.n_kv_heads, dh)
+    v = linear(params["wv"], x).reshape(B, T, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+    if sin is not None:
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg):
+    """Grouped scaled-dot-product attention.
+
+    q: (B, T, H, dh); k/v: (B, S, Kv, dh) with H % Kv == 0.
+    mask: (T, S) or (B, 1, 1, T, S) boolean, True = attend.
+    """
+    B, T, H, dh = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    q = q.reshape(B, T, Kv, G, dh)
+    scale = dh ** -0.5
+    scores = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float()) * scale
+    if cfg.logit_softcap:
+        scores = cfg.logit_softcap * torch.tanh(scores / cfg.logit_softcap)
+    if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[None, None, None]
+        scores = torch.where(mask, scores, -1e30)
+    # the weights are rounded to q's type before p v, as in the reference
+    w = softmax(scores).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", w, v)
+    return out.reshape(B, T, H, dh)
+
+
+def causal_mask(T: int, S: int, window: int = 0, device=None):
+    """mask[t, s] = attendable."""
+    t = torch.arange(T, device=device)[:, None]
+    s = torch.arange(S, device=device)[None, :]
+    m = s <= t
+    if window:
+        m &= s > (t - window)
+    return m
+
+
+def _can_use_tuned_sdpa(cfg, causal: bool) -> bool:
+    """The flash-attention path covers plain causal / full attention:
+    sliding windows and logit softcaps stay on the einsum path."""
+    if cfg.logit_softcap:
+        return False
+    return not (causal and cfg.sliding_window)
+
+
+def attention(params, x, cfg, *, sin=None, cos=None, causal: bool = True,
+              make_cache_len: int = 0):
+    """Full-sequence attention. Returns (y, cache_or_None)."""
+    B, T, _ = x.shape
+    q, k, v = _qkv(params, x, cfg, sin, cos)
+    if _can_use_tuned_sdpa(cfg, causal):
+        out = flash_ops.sdpa(q, k, v, causal=causal)
+    else:
+        mask = (causal_mask(T, T, cfg.sliding_window, device=x.device)
+                if causal else None)
+        out = _sdpa(q, k, v, mask, cfg)
+    y = linear(params["wo"], out.reshape(B, T, -1))
+    cache = None
+    if make_cache_len:
+        L = make_cache_len
+        if cfg.sliding_window:
+            L = min(L, cfg.sliding_window)
+            k, v = k[:, -L:], v[:, -L:]
+        pad = (0, 0, 0, 0, 0, L - k.shape[1])
+        cache = {"k": torch.nn.functional.pad(k, pad),
+                 "v": torch.nn.functional.pad(v, pad)}
+    return y, cache
+
+
+def init_cache(cfg, batch: int, max_len: int, device,
+               dtype=torch.bfloat16):
+    """Empty decode cache. SWA archs get a ring buffer of window size."""
+    L = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim_())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(params, x, cfg, cache, position: int, *, sin=None,
+                     cos=None):
+    """One-token decode. x: (B, 1, d). position: int (tokens so far).
+
+    Full-attention caches index by absolute position; sliding-window caches
+    are ring buffers indexed by ``position % window``.  The new K/V are
+    written into the cache's slot in place (the reference returns an
+    updated copy); the returned cache is the same dict.
+    """
+    B, T, _ = x.shape
+    if T != 1:
+        raise ValueError(f"attention_decode: one token a step, got T={T}")
+    q, k, v = _qkv(params, x, cfg, sin, cos)
+    L = cache["k"].shape[1]
+    slot = position % L if cfg.sliding_window > 0 else position
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    idx = torch.arange(L, device=x.device)
+    if cfg.sliding_window:
+        # ring buffer: until it wraps only slots <= position are valid;
+        # once full, every slot holds one of the last L tokens.
+        valid = ((position < L) & (idx <= position)) | (position >= L)
+    else:
+        valid = idx <= position
+    mask = valid[None, None, None, None, :]
+    out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
+    y = linear(params["wo"], out.reshape(B, 1, -1))
+    return y, cache

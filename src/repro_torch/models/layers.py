@@ -1,0 +1,166 @@
+"""Core layers: norms, linear, MLP/GLU, embeddings, RoPE.
+
+Each function computes what its counterpart in the reference's
+``models/layers.py`` computes, in the same types: norms in f32 with an
+f32 scale, matmul weights cast to the activations' type at use, the
+embedding gathered in bf16, RoPE in f32 on split halves.  The
+reference's ``shard_act`` annotations have no counterpart on one GPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.param import (dense_init, embed_init, ones_init,
+                                      zeros_init)
+
+def _silu(x):
+    # jax.nn.silu's formula, one rounding per op in the input's type
+    # (as XLA rounds a bf16 elementwise chain); F.silu rounds once and
+    # differs from the reference by an ulp in about a third of bf16 inputs
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def softmax(x, dim: int = -1):
+    """jax.nn.softmax's formula: exp(x - max) / sum."""
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True)
+
+
+ACTS = {
+    "silu": _silu,
+    # jax.nn.gelu is the tanh approximation unless told otherwise
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_norm(cfg, device, dim: int = 0):
+    d = dim or cfg.d_model
+    p = {"scale": ones_init((d,), device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = zeros_init((d,), device)
+    return p
+
+
+def norm(params, x, cfg):
+    dtype = x.dtype
+    x = x.float()
+    if cfg.norm_type == "layernorm":
+        x = x - x.mean(-1, keepdim=True)
+    var = x.square().mean(-1, keepdim=True)
+    x = x * torch.rsqrt(var + cfg.norm_eps)
+    out = x * params["scale"].float()
+    if cfg.norm_type == "layernorm":
+        out = out + params["bias"].float()
+    return out.to(dtype)
+
+
+def rms_norm_simple(x, scale, eps: float = 1e-6):
+    """Scale-only RMS norm over the last dim (for QK-norm etc.)."""
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear
+# ---------------------------------------------------------------------------
+def init_linear(gen, d_in: int, d_out: int, dtype, use_bias: bool = False,
+                scale: float = 1.0):
+    p = {"w": dense_init(gen, (d_in, d_out), dtype, scale=scale)}
+    if use_bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def linear(params, x):
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated or plain)
+# ---------------------------------------------------------------------------
+def init_mlp(gen, cfg, dtype, d_ff: int = 0):
+    d_ff = d_ff or cfg.d_ff
+    p = {"up": init_linear(gen, cfg.d_model, d_ff, dtype, cfg.use_bias),
+         "down": init_linear(gen, d_ff, cfg.d_model, dtype, cfg.use_bias)}
+    if cfg.mlp_gated:
+        p["gate"] = init_linear(gen, cfg.d_model, d_ff, dtype, cfg.use_bias)
+    return p
+
+
+def mlp(params, x, cfg):
+    act = ACTS[cfg.act]
+    h = linear(params["up"], x)
+    if "gate" in params:
+        h = h * act(linear(params["gate"], x))
+    else:
+        h = act(h)
+    return linear(params["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def init_embedding(gen, cfg, dtype):
+    return {"table": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)}
+
+
+def embed(params, token_ids, cfg):
+    return params["table"].to(torch.bfloat16)[token_ids]
+
+
+def init_unembed(gen, cfg, dtype):
+    return {"w": dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                            fan_in=cfg.d_model)}
+
+
+def unembed(params, x, cfg, embed_params=None):
+    if cfg.tie_embeddings and embed_params is not None:
+        w = embed_params["table"].to(x.dtype).T
+    else:
+        w = params["w"].to(x.dtype)
+    logits = x @ w
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_table(dim: int, max_len: int, theta: float = 10000.0,
+               positions: Optional[torch.Tensor] = None, device=None):
+    """sin/cos tables of shape (..., L, dim/2), f32."""
+    if positions is None:
+        positions = torch.arange(max_len, device=device)
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, sin, cos):
+    """x: (..., L, H, dh); sin/cos: (L, dh/2) or broadcastable."""
+    dtype = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    if sin.dim() == 2:  # (L, dh/2) -> broadcast over batch and heads
+        sin = sin[None, :, None, :]
+        cos = cos[None, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dtype)

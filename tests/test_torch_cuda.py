@@ -8,7 +8,17 @@ GPU host that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances as in the kernel tests: hist, sort and the probe exact,
-spmv 2e-5, conv 2e-4 (f32 sums in another order), bilateral 1e-3.
+spmv 2e-5, conv 2e-4 (f32 sums in another order), bilateral 1e-3,
+attention and gmm 2e-5 and 2e-4 in f32 and 1e-2 in bf16 (one rounding
+of the output, a few ulp at |out| <= 1).
+
+The plain versions the kernels are held against: ``conv2d_shift_add``
+(K1), ``hist_ref`` (K2), ``spmv_ell_ref`` (K3), ``t + 1`` (K4),
+``bitonic_rows_torch`` (K5), ``bilateral_lut_torch`` (K6),
+``flash_attention.ref.attention_ref`` (K7, the unblocked f32 softmax)
+and ``gmm.gmm.gmm_torch`` (K8, f32 products of the upcast operands).
+The LM's greedy tokens are held against the same model run with K7 and
+K8 swapped for those two (``serve.plain_check``).
 """
 import numpy as np
 import pytest
@@ -20,12 +30,18 @@ from repro_torch.kernels import common
 from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                      bilateral_lut_torch)
 from repro_torch.kernels.conv2d.conv2d import conv2d_cuda, conv2d_shift_add
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
 from repro_torch.kernels.hist.hist import hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
 from repro_torch.kernels.sort_bitonic.sort_bitonic import (
     bitonic_rows_torch, sort_rows_cuda)
 from repro_torch.kernels.spmv.ref import spmv_ell_ref
 from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
+from repro_torch.serve.plain_check import (check_tokens, greedy_with_gaps,
+                                           plain_kernels)
 
 
 def _t(a):
@@ -109,6 +125,93 @@ def test_bilateral_kernel_on_gpu(gpu, H, W, radius):
     torch.testing.assert_close(bilateral_cuda(img, sp, rl),
                                bilateral_lut_torch(img, sp, rl),
                                rtol=1e-3, atol=1e-3)
+
+
+# (BH, BHkv, T, S, d, causal): d 32/80/112/128, GQA groups of 1, 2 and
+# 8, ragged T, T != S both ways, one query tile and many
+ATTN_CASES = [(8, 8, 128, 128, 32, True), (8, 4, 100, 100, 80, True),
+              (16, 2, 77, 77, 112, False), (4, 1, 200, 130, 128, True),
+              (6, 3, 50, 190, 112, False), (64, 8, 256, 256, 112, True),
+              (2, 2, 1, 9, 32, True), (3, 3, 65, 65, 128, False)]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("BH,BHkv,T,S,d,causal", ATTN_CASES)
+def test_flash_attention_kernel_on_gpu(gpu, BH, BHkv, T, S, d, causal,
+                                       dtype):
+    rng = np.random.default_rng(BH * T + S * d)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = (_t(rng.standard_normal(shape).astype(np.float32)).to(
+        gpu, td) for shape in ((BH, T, d), (BHkv, S, d), (BHkv, S, d)))
+    out = flash_attention_cuda(q, k, v, causal)
+    assert out.dtype == td and out.shape == (BH, T, d)
+    rep = BH // BHkv
+    ref = attention_ref(q, k.repeat_interleave(rep, 0),
+                        v.repeat_interleave(rep, 0), causal)
+    tol = 1e-2 if dtype == "bf16" else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("E,C,D,F", [(4, 64, 32, 48), (2, 100, 96, 80),
+                                     (3, 1, 40, 24), (5, 7, 33, 130),
+                                     (2, 200, 64, 72), (384, 4, 256, 128),
+                                     (6, 13, 100, 11)])
+def test_gmm_kernel_on_gpu(gpu, E, C, D, F, dtype):
+    rng = np.random.default_rng(E * C + D * F)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    x = _t(rng.standard_normal((E, C, D)).astype(np.float32)).to(gpu, td)
+    w = _t((rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(
+        np.float32)).to(gpu, td)
+    out = gmm_cuda(x, w)
+    assert out.dtype == td and out.shape == (E, C, F)
+    tol = 1e-2 if dtype == "bf16" else 2e-4
+    torch.testing.assert_close(out.float(), gmm_torch(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.needs_cuda
+def test_lm_kernels_refuse_inputs_that_require_grad(gpu):
+    """No backward yet: nothing quietly differentiates through them."""
+    q = torch.randn((2, 8, 16), device=gpu, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention_cuda(q, q.detach(), q.detach())
+    x = torch.randn((2, 4, 8), device=gpu)
+    w = torch.randn((2, 8, 4), device=gpu, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        gmm_cuda(x, w)
+
+
+@pytest.mark.needs_cuda
+def test_lm_greedy_tokens_kernel_path_against_plain_path(gpu):
+    """kimi-k2 at reduced width and depth 2 (the dense layer and one MoE
+    layer): ``generate`` through K7 and K8 gives the plain path's
+    tokens, except where the plain path's top-1/top-2 gap is under the
+    bf16 model tolerance 0.25 (the row is compared no further)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serve_step import generate
+
+    cfg = registry.get("kimi-k2-1t-a32b").reduced().replace(n_layers=2)
+    params = model_zoo.init(cfg, 0, device=gpu)
+    gen = torch.Generator(device=gpu).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=gpu,
+                           generator=gen)
+    common.reset_launches()
+    out = generate(cfg, params, prompt, 8)
+    counts = common.launch_counts()
+    # K7: 2 attention layers at prefill; K8: 3 matmuls x (capacity pass
+    # + one tail pass) in the MoE layer, at prefill and each of 8 steps
+    assert counts["flash_attention"] == 2
+    assert counts["gmm"] == 6 * 9
+    common.reset_launches()
+    with plain_kernels():
+        plain, gaps, _ = greedy_with_gaps(cfg, params, prompt, 8)
+    assert common.launch_counts()["gmm"] == 0
+    assert common.launch_counts()["flash_attention"] == 0
+    check_tokens(out, plain, gaps)
 
 
 @pytest.mark.needs_cuda

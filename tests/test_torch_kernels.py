@@ -10,11 +10,17 @@ conv is held against ``conv2d_ref`` and ``conv2d_shift_add``; hist,
 spmv, the row sorter and the bilateral filter are also held against
 their Pallas kernels in interpret mode.
 
+Flash attention and the grouped matmul are held against their Pallas
+kernels in interpret mode and their oracles.
+
 Tolerances are the reference's own (tests/test_kernels.py): hist and
 sort exact (integer counts; a sort is a permutation), spmv 2e-5 (f32
 sums in another order), conv 2e-4 (K^2 f32 products summed in another
 order), bilateral 1e-3 (the LUT filter against the direct one, and f32
-sums in another order), binned spmv against the dense product 1e-4.
+sums in another order), binned spmv against the dense product 1e-4,
+attention 2e-5 in f32 and 0.05 in bf16 (the online softmax against the
+unblocked one), gmm 2e-4 in f32 (sums in another order) and 1e-2 in
+bf16 (one rounding of the output to bf16, relative 2^-8).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +32,11 @@ from repro.kernels.bilateral.bilateral import bilateral_pallas
 from repro.kernels.bilateral.ref import bilateral_ref as jax_bilateral_ref
 from repro.kernels.conv2d.conv2d import conv2d_shift_add as jax_shift_add
 from repro.kernels.conv2d.ref import conv2d_ref as jax_conv_ref
+from repro.kernels.flash_attention.flash_attention import (
+    flash_attention_pallas)
+from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
+from repro.kernels.gmm.gmm import gmm_pallas
+from repro.kernels.gmm.ref import gmm_ref as jax_gmm_ref
 from repro.kernels.hist.hist import hist_pallas
 from repro.kernels.hist.ref import hist_ref as jax_hist_ref
 from repro.kernels.spmv import ops as jax_spmv_ops
@@ -44,6 +55,13 @@ from repro_torch.kernels.bilateral.ref import bilateral_ref
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d.conv2d import conv2d_cuda, conv2d_shift_add
 from repro_torch.kernels.conv2d.ref import conv2d_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
+from repro_torch.kernels.gmm.ref import gmm_ref
 from repro_torch.kernels.hist import ops as hist_ops
 from repro_torch.kernels.hist.hist import hist_bincount, hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
@@ -65,6 +83,8 @@ SORT_IMPLS = {"ref": sort_rows_ref, "ops": sort_ops.sort_rows,
               "bitonic": bitonic_rows_torch}
 BILAT_IMPLS = {"ops": bilateral_ops.bilateral_filter,
                "lut": bilateral_lut_torch}
+GMM_IMPLS = {"ref": gmm_ref, "ops": gmm_ops.gmm, "model": gmm_ops.gmm_model,
+             "plain": gmm_torch}
 
 
 def _t(a):
@@ -236,6 +256,129 @@ def test_bilateral_luts_are_the_references():
             np.testing.assert_array_equal(mine, ref)
 
 
+# ----------------------------------------------------- flash attention
+def _attn_inputs(B, T, S, H, Kv, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((B, T, H, d), (B, S, Kv, d), (B, S, Kv, d)))
+    if dtype == "bf16":
+        # both sides start from the same bf16 values
+        q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                   for a in (q, k, v))
+    return q, k, v
+
+
+def _jax_flat(q, k, v, dtype):
+    """(B, T, H, d) numpy -> the reference kernel's (B*H, T, d), K/V
+    heads repeated as its _flatten_gqa does."""
+    B, T, H, d = q.shape
+    rep = H // k.shape[2]
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    k, v = np.repeat(k, rep, axis=2), np.repeat(v, rep, axis=2)
+    return tuple(jnp.asarray(a.transpose(0, 2, 1, 3).reshape(
+        B * H, a.shape[1], d), jd) for a in (q, k, v))
+
+
+def _from_jax_flat(of, B, H):
+    BH, T, d = of.shape
+    return np.asarray(of, np.float32).reshape(B, H, T, d).transpose(
+        0, 2, 1, 3)
+
+
+# (B, T, S, H, Kv, d, causal, dtype): the reference test's shapes, d 112
+# (kimi-k2) beside 32, GQA, ragged T, T != S, and bf16 at both widths
+ATTN_CASES = [
+    (2, 128, 128, 4, 4, 32, True, "f32"),
+    (2, 100, 100, 4, 2, 112, True, "f32"),
+    (2, 128, 128, 8, 1, 32, False, "f32"),
+    (1, 77, 77, 4, 2, 112, False, "f32"),
+    (2, 64, 96, 4, 2, 32, True, "f32"),
+    (1, 96, 40, 4, 4, 32, False, "f32"),
+    (1, 128, 128, 4, 2, 64, True, "bf16"),
+    (1, 100, 100, 8, 2, 112, True, "bf16"),
+]
+
+
+@pytest.mark.parametrize("B,T,S,H,Kv,d,causal,dtype", ATTN_CASES)
+def test_flash_attention_matches_reference(B, T, S, H, Kv, d, causal, dtype):
+    """The port's entry on the CPU (the unblocked oracle, K7's plain
+    version) against the Pallas kernel in interpret mode and the
+    reference's oracle."""
+    q, k, v = _attn_inputs(B, T, S, H, Kv, d, dtype, T * d + S + H)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    out = flash_ops.flash_attention(_t(q).to(td), _t(k).to(td),
+                                    _t(v).to(td), causal=causal)
+    assert out.dtype == td and out.shape == (B, T, H, d)
+    out = out.float().numpy()
+    tol = 0.05 if dtype == "bf16" else 2e-5
+    qf, kf, vf = _jax_flat(q, k, v, dtype)
+    for ref in (flash_attention_pallas(qf, kf, vf, causal=causal,
+                                       block_q=64, block_k=64,
+                                       interpret=True),
+                jax_attn_ref(qf, kf, vf, causal=causal)):
+        np.testing.assert_allclose(out, _from_jax_flat(ref, B, H),
+                                   rtol=tol, atol=tol)
+
+
+def test_flash_attention_entries_agree_on_cpu():
+    """sdpa, flash_attention with and without use_kernel, and the oracle
+    on the flattened heads are one function on the CPU."""
+    q, k, v = (_t(a) for a in _attn_inputs(2, 50, 50, 4, 2, 32, "f32", 5))
+    out = flash_ops.sdpa(q, k, v, causal=True)
+    assert torch.equal(out, flash_ops.flash_attention(q, k, v))
+    assert torch.equal(out, flash_ops.flash_attention(q, k, v,
+                                                      use_kernel=False))
+    flat = attention_ref(*flash_ops._flatten_gqa(q, k, v, repeat=True))
+    assert torch.equal(out, flat.reshape(2, 4, 50, 32).transpose(1, 2))
+
+
+def test_flatten_gqa_keeps_kv_heads():
+    """The kernel reads query head h's K/V at h // (H / Kv): flattening
+    keeps the Kv heads, and row b*Kv + h // rep is the repeated row
+    b*H + h."""
+    q, k, v = (_t(a) for a in _attn_inputs(2, 8, 8, 6, 2, 16, "f32", 9))
+    _, kf, _ = flash_ops._flatten_gqa(q, k, v)
+    _, kr, _ = flash_ops._flatten_gqa(q, k, v, repeat=True)
+    assert kf.shape == (4, 8, 16) and kr.shape == (12, 8, 16)
+    for b in range(2):
+        for h in range(6):
+            assert torch.equal(kr[b * 6 + h], kf[b * 2 + h // 3])
+
+
+# ---------------------------------------------------------------- gmm
+@pytest.mark.parametrize("impl", sorted(GMM_IMPLS))
+@pytest.mark.parametrize("E,C,D,F,tc,tf,td", [
+    (4, 64, 32, 48, 32, 32, 16), (2, 100, 96, 80, 64, 64, 32),
+    (8, 128, 128, 128, 128, 128, 128), (3, 1, 40, 24, 8, 8, 8)])
+def test_gmm_matches_reference(E, C, D, F, tc, tf, td, impl):
+    rng = np.random.default_rng(E * C + D * F)
+    x = rng.standard_normal((E, C, D)).astype(np.float32)
+    w = rng.standard_normal((E, D, F)).astype(np.float32)
+    out = GMM_IMPLS[impl](_t(x), _t(w))
+    assert out.shape == (E, C, F) and out.dtype == torch.float32
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    for ref in (gmm_pallas(jx, jw, tile_c=tc, tile_f=tf, tile_d=td,
+                           interpret=True), jax_gmm_ref(jx, jw)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_gmm_bf16_plain_version_matches_reference():
+    """bf16 operands: the plain version upcasts to f32 and rounds the
+    result once, as the Pallas kernel and the reference's einsum do."""
+    rng = np.random.default_rng(12)
+    x = jnp.asarray(rng.standard_normal((6, 20, 96)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((6, 96, 40)) / 10, jnp.bfloat16)
+    out = gmm_torch(_t(np.asarray(x, np.float32)).bfloat16(),
+                    _t(np.asarray(w, np.float32)).bfloat16())
+    assert out.dtype == torch.bfloat16
+    for ref in (gmm_pallas(x, w, tile_c=8, tile_f=8, tile_d=32,
+                           interpret=True), jax_gmm_ref(x, w)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref, np.float32), rtol=1e-2,
+                                   atol=1e-2)
+
+
 # -------------------------------------------------------------- probe
 def test_probe_add_one_cpu():
     t = _t(np.random.default_rng(5).standard_normal((128, 128)).astype(
@@ -245,7 +388,8 @@ def test_probe_add_one_cpu():
 
 # ------------------------------------------- dispatch and the library
 @pytest.mark.parametrize("call", ["conv2d", "hist", "spmv_ell",
-                                  "sort_bitonic", "bilateral"])
+                                  "sort_bitonic", "bilateral",
+                                  "flash_attention", "gmm"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper never falls back: a tensor that is not on a GPU
     is refused before any pointer leaves Python."""
@@ -260,6 +404,10 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
                           torch.zeros(4))
         elif call == "sort_bitonic":
             sort_rows_cuda(x)
+        elif call == "flash_attention":
+            flash_attention_cuda(x[None], x[None], x[None])
+        elif call == "gmm":
+            gmm_cuda(x[None], x[None])
         else:
             bilateral_cuda(x, torch.zeros((3, 3)), torch.zeros(256))
 
@@ -279,6 +427,12 @@ OPS_CALLS = {
     "bilateral_filter": lambda: bilateral_ops.bilateral_filter(
         torch.zeros((8, 8)), torch.zeros((3, 3)), torch.zeros(256),
         config=_OTHER_CONFIG),
+    "flash_attention": lambda: flash_ops.flash_attention(
+        torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 1, 16)),
+        torch.zeros((1, 8, 1, 16)), config=_OTHER_CONFIG),
+    "gmm": lambda: gmm_ops.gmm(torch.zeros((2, 4, 8)),
+                               torch.zeros((2, 8, 4)),
+                               config=_OTHER_CONFIG),
 }
 
 
