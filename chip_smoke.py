@@ -25,8 +25,10 @@
    from seed 0), serves a batch of 4 prompts of 1024 tokens through
    ``serve_step.generate`` (prefill + 16 greedy decode steps): weights'
    bytes, peak memory, K7/K8 launches per ``generate``, per prefill and
-   per decode step, prefill time, decode time per token, the GPU's idle
-   share in one profiled decode step; then the same greedy run with K7
+   per decode step (all of them through the tensor-core entries of K7
+   and K8), prefill time, decode time per token, the GPU's idle share
+   in one profiled decode step and the device time by kernel of one
+   profiled prefill; then the same greedy run with K7
    and K8 swapped for their plain versions, whose tokens the kernel
    path must give under the margin rule (``serve/plain_check.py``);
    then K7 and K8 against their plain versions at the main path's
@@ -76,11 +78,17 @@ SOURCE = {
                      "src/repro/kernels/sort_bitonic/sort_bitonic.py:58"),
     "bilateral": ("src/repro_torch/csrc/bilateral.cu",
                   "src/repro/kernels/bilateral/bilateral.py:66"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention/"
-                        "flash_attention.py:75"),
-    "gmm": ("src/repro_torch/csrc/gmm.cu", "src/repro/kernels/gmm/gmm.py:40"),
+                        "flash_attention.py:94"),
+    "gmm": ("src/repro_torch/csrc/gmm_wgmma.cu",
+            "src/repro/kernels/gmm/gmm.py:58"),
 }
+# the C entry points the LM's main path must launch (bf16, aligned rows):
+# the tensor-core routes of K7 and K8, never their CUDA-core routes
+LM_ENTRY = {"flash_attention": ("flash_attention_wgmma_bf16",
+                                "flash_attention_fma_bf16"),
+            "gmm": ("gmm_wgmma_bf16", "gmm_fma_bf16")}
 
 CONV_SIZE, CONV_K = 3600, 15
 HIST_N, HIST_BINS = 1 << 26, 256
@@ -143,10 +151,10 @@ def check(torch, name, out, ref, what) -> float:
 
 
 def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape,
-               peak_flops=PEAK_F32_FLOPS):
+               peak_flops=PEAK_F32_FLOPS, entry=None):
     """The JSON row of one kernel at the main path's shape; the bound is
     the larger of its bytes over HBM's rate and its operations over
-    ``peak_flops``."""
+    ``peak_flops``.  ``entry``: the C entry point (route) that ran."""
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     src, rep = SOURCE[name]
@@ -155,9 +163,12 @@ def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape,
          "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
          "library_ms": library_ms}
+    if entry is not None:
+        r["entry"], r["shape"] = entry, shape
     print(f"kernel {name} {shape}: err={err:.3g} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={r['bound_ms']:.4f} "
-          f"({r['bound_by']}) library_ms={library_ms}", flush=True)
+          f"({r['bound_by']}) library_ms={library_ms}"
+          + (f" entry={entry}" if entry else ""), flush=True)
     return r
 
 
@@ -653,18 +664,19 @@ def hybrid_phase(torch, np):
 # ---------------------------------------------------------------------------
 # LM phase
 # ---------------------------------------------------------------------------
-def decode_idle(torch, step, params, tok, caches, position):
-    """One decode step under torch.profiler: the GPU's busy time (union
-    of its kernel, copy and memset intervals) inside the step's window
-    (the host's span of the step and its synchronisation)."""
+def profile_window(torch, label, fn, top=6):
+    """``fn()`` and a synchronisation under torch.profiler: the GPU's
+    busy time (union of its kernel, copy and memset intervals) inside
+    the window (the host's span of the call and its synchronisation),
+    the idle share, and the device time by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    mark = "lm:decode_step"
+    mark = f"lm:{label}"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(mark):
-            step(params, tok, caches, position)
+            fn()
             torch.cuda.synchronize()
     events = prof.events()
     spans = [(e.time_range.start, e.time_range.end) for e in events
@@ -682,14 +694,13 @@ def decode_idle(torch, step, params, tok, caches, position):
             by_name[e.name] = (t + hi - lo, n + 1)
     busy = _union_s(inside)
     if busy <= 0:
-        raise AssertionError("lm decode step: no device time in the window")
+        raise AssertionError(f"{label}: no device time in the window")
     window = (w1 - w0) / 1e6
-    print(f"lm decode profiled: window_s={window!r} gpu_busy_s={busy!r} "
+    print(f"{label}: window_s={window!r} gpu_busy_s={busy!r} "
           f"gpu_idle_share={1.0 - busy / window!r}")
     for name, (t, n) in sorted(by_name.items(),
-                               key=lambda kv: -kv[1][0])[:6]:
-        print(f"lm decode profiled: device {t / 1e3:.3f} ms in {n}  "
-              f"{name[:90]}")
+                               key=lambda kv: -kv[1][0])[:top]:
+        print(f"{label}: device {t / 1e3:.3f} ms in {n}  {name[:90]}")
 
 
 def lm_phase(torch, dev):
@@ -736,14 +747,23 @@ def lm_phase(torch, dev):
     passes = 1 + m.overflow_passes
     want = {"flash_attention": cfg.n_layers,
             "gmm": 3 * passes * n_moe * (1 + LM_NEW)}
+    entries = common.entry_counts()
     print(f"lm generate: batch={LM_BATCH} prompt={LM_PROMPT} "
           f"new={LM_NEW} tokens={tuple(toks.shape)} wall_s={wall!r} "
           f"peak_bytes={peak} launches={counts} predicted={want}",
           flush=True)
+    print(f"lm generate: launches by entry: " + ", ".join(
+        f"{e}={entries[e]}" for pair in LM_ENTRY.values() for e in pair))
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"lm generate: {name} launched "
                                  f"{counts[name]} times, predicted {n}")
+        tensor_core, cuda_core = LM_ENTRY[name]
+        if entries[tensor_core] != n or entries[cuda_core]:
+            raise AssertionError(
+                f"lm generate: {name} went {entries[tensor_core]} times "
+                f"through {tensor_core} and {entries[cuda_core]} through "
+                f"{cuda_core}; all {n} must take the tensor cores")
     if toks.shape != (LM_BATCH, LM_NEW + 1) or toks.dtype != torch.int32 \
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"lm generate: bad tokens {toks}")
@@ -777,8 +797,13 @@ def lm_phase(torch, dev):
               f"min_step_s={min(step_s)!r} tokens_per_s="
               f"{LM_BATCH / decode_s!r} launches_per_step="
               f"{per['decode step']}", flush=True)
-        decode_idle(torch, step, params, tok, caches, L - 1)
+        profile_window(torch, "lm decode profiled",
+                       lambda: step(params, tok, caches, L - 1))
         del caches
+        # the prefill's device time by kernel: K7, K8, the dense layers
+        # and the copies around K7 (flash_attention.ops._flatten_gqa)
+        profile_window(torch, "lm prefill profiled",
+                       lambda: prefill(params, {"tokens": prompt}), top=12)
 
     # the plain path: the same greedy run with K7 and K8 swapped out
     common.reset_launches()
@@ -806,14 +831,19 @@ def lm_phase(torch, dev):
 
 def lm_kernel_rows(torch, dev, flush, cfg, params):
     """K7 and K8 against their plain versions at the main path's shapes
-    (the JSON rows: K7 at prefill, K8 at a decode step's up projection)
-    and at ragged shapes, with the library call beside each."""
+    (the JSON rows: K7 at prefill, K8 at each of its five shapes: decode
+    and prefill up and down, the prefill's tail pass) and at ragged
+    shapes, with the library call and the route (C entry) beside each."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        route as flash_route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
+    from repro_torch.kernels.gmm.gmm import route as gmm_route
 
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -855,8 +885,36 @@ def lm_kernel_rows(torch, dev, flush, cfg, params):
         4.0 * B * H * pairs * d, 2.0 * (2 * B * H + 2 * B * Kv) * T * d,
         time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True, enable_gqa=True), flush),
-        f"BH={B * H}/{B * Kv} T=S={T} d={d} causal", PEAK_BF16_FLOPS)]
+        f"prefill: BH={B * H}/{B * Kv} T=S={T} d={d} causal",
+        PEAK_BF16_FLOPS, entry=flash_route(q.dtype, d))]
     del q, k, v, q4, k4, v4
+
+    # the model path calls K7 through ops.flash_attention, which takes
+    # (B, T, H, d) and copies q/k/v to (B*H, T, d) first
+    # (_flatten_gqa): its time beside the kernel's is the copies' cost
+    qm, km, vm = randn(B, T, H, d), randn(B, T, Kv, d), randn(B, T, Kv, d)
+    ops_ms = time_ms(torch, lambda: flash_ops.flash_attention(qm, km, vm),
+                     flush)
+    print(f"kernel flash_attention model layout: ops.flash_attention "
+          f"{ops_ms:.4f} ms, the kernel alone {rows[0]['ms']:.4f} ms "
+          f"(the difference: _flatten_gqa's copies)")
+    del qm, km, vm
+
+    # host cost of a call on each route at a shape whose kernel takes a
+    # few microseconds: the tensor-core route also encodes three TMA
+    # tensor maps (cuTensorMapEncodeTiled) on every call
+    qs = randn(1, 64, 64)
+    for label, x in (("wgmma (bf16)", qs), ("fma (f32)", qs.float())):
+        flash_attention_cuda(x, x, x, True)
+        torch.cuda.synchronize()
+        n = 2000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            flash_attention_cuda(x, x, x, True)
+        host_us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        print(f"kernel flash_attention host: {label} route "
+              f"{host_us:.2f} us a call (BH=1 T=S=64 d=64)")
 
     for E, C, D, F_ in [(3, 1, 40, 24), (5, 7, 33, 130), (6, 13, 100, 11),
                         (2, 200, 64, 72)]:
@@ -876,14 +934,13 @@ def lm_kernel_rows(torch, dev, flush, cfg, params):
         E, D, F_ = w.shape
         x = randn(E, c, D)
         err = check("gmm", gmm_cuda(x, w), gmm_torch(x, w), label)
-        r = kernel_row(
+        rows.append(kernel_row(
             "gmm", err, time_ms(torch, lambda: gmm_cuda(x, w), flush),
             time_ms(torch, lambda: gmm_torch(x, w), flush, iters=10),
             2.0 * E * c * D * F_, 2.0 * E * (c * D + D * F_ + c * F_),
             time_ms(torch, lambda: torch.bmm(x, w), flush),
-            f"{label}: E={E} C={c} D={D} F={F_}", PEAK_BF16_FLOPS)
-        if label == "decode up":
-            rows.append(r)
+            f"{label}: E={E} C={c} D={D} F={F_}", PEAK_BF16_FLOPS,
+            entry=gmm_route(x.dtype, D, F_)))
     return rows
 
 
@@ -926,9 +983,11 @@ def main() -> None:
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
     rows += lm_kernel_rows(torch, dev, flush, lm_cfg, lm_params)
     del flush, lm_params
-    for r in rows[-2:]:
-        r["launches_per_prefill"] = lm_per["prefill"][r["name"]]
-        r["launches_per_decode_step"] = lm_per["decode step"][r["name"]]
+    for r in rows:
+        if r["name"] in LM_ENTRY:
+            r["launches_per_prefill"] = lm_per["prefill"][r["name"]]
+            r["launches_per_decode_step"] = \
+                lm_per["decode step"][r["name"]]
     # the main path: the cold and the warm call of each workload, sort's
     # leaf sorter and the LM's generate call
     for r in rows:

@@ -1,4 +1,6 @@
-// K7: blocked (flash) attention with an online softmax.
+// K7, CUDA-core route: blocked (flash) attention with an online softmax,
+// for f32 and the shapes the tensor-core route (flash_attention_wgmma.cu:
+// bf16, d % 8 == 0, d <= 128) does not take.
 // q (BH, T, d), k/v (BHkv, S, d), BH = BHkv * rep: query head bh reads
 // K/V head bh / rep (grouped-query attention without materialising the
 // repeat).  Returns (BH, T, d) in q's type; f32 or bf16 in and out.
@@ -217,18 +219,20 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int BH,
 
 }  // namespace
 
-extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int BH, int Tq,
-                                   int S, int d, int rep, float scale,
-                                   int causal, void* stream) {
+extern "C" int flash_attention_fma_f32(const void* q, const void* k,
+                                       const void* v, void* out, int BH,
+                                       int Tq, int S, int d, int rep,
+                                       float scale, int causal,
+                                       void* stream) {
   return dispatch<float>(q, k, v, out, BH, Tq, S, d, rep, scale, causal,
                          stream);
 }
 
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int BH,
-                                    int Tq, int S, int d, int rep,
-                                    float scale, int causal, void* stream) {
+extern "C" int flash_attention_fma_bf16(const void* q, const void* k,
+                                        const void* v, void* out, int BH,
+                                        int Tq, int S, int d, int rep,
+                                        float scale, int causal,
+                                        void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, out, BH, Tq, S, d, rep, scale,
                                  causal, stream);
 }

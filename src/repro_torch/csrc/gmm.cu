@@ -1,4 +1,6 @@
-// K8: grouped (per-expert) matmul, out[e] = x[e] @ w[e] for x (E, C, D)
+// K8, CUDA-core route, for f32 and the shapes the tensor-core route
+// (gmm_wgmma.cu: bf16, D % 8 == 0, F % 8 == 0) does not take:
+// grouped (per-expert) matmul, out[e] = x[e] @ w[e] for x (E, C, D)
 // and w (E, D, F); out (E, C, F) in x's type; f32 or bf16 in and out,
 // f32 accumulation.
 //
@@ -172,12 +174,12 @@ int dispatch(const void* x, const void* w, void* out, int E, int C, int D,
 
 }  // namespace
 
-extern "C" int gmm_f32(const void* x, const void* w, void* out, int E,
-                       int C, int D, int F, void* stream) {
+extern "C" int gmm_fma_f32(const void* x, const void* w, void* out,
+                           int E, int C, int D, int F, void* stream) {
   return dispatch<float>(x, w, out, E, C, D, F, stream);
 }
 
-extern "C" int gmm_bf16(const void* x, const void* w, void* out, int E,
-                        int C, int D, int F, void* stream) {
+extern "C" int gmm_fma_bf16(const void* x, const void* w, void* out,
+                            int E, int C, int D, int F, void* stream) {
   return dispatch<__nv_bfloat16>(x, w, out, E, C, D, F, stream);
 }

@@ -14,11 +14,14 @@ from the device of the tensor it is given:
 ``kernel_lib()`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``) with
 ``nvcc`` into a plain-C shared library at first use — one ``nvcc`` per
 source, started together, then one link — under ``build/`` beside this
-package (keyed by a digest of the sources and flags, so an edited
-source rebuilds), and loads it with ctypes.  Each launch goes through
+package (keyed by a digest of the flags, the sources and the shared
+``csrc/*.cuh`` headers, so an edited source or header rebuilds), and
+loads it with ctypes.  The library links only the CUDA runtime: the
+tensor-core kernels encode their TMA tensor maps with
+``cuTensorMapEncodeTiled``, which they look up through the runtime.  Each launch goes through
 ``launch``, which passes PyTorch's current stream, raises on the
 kernel's ``cudaGetLastError()`` code and adds one to the kernel's
-launch count.
+launch count and to its C entry point's.
 """
 from __future__ import annotations
 
@@ -51,11 +54,15 @@ _SIGNATURES = {
     "probe_add_one_f32": [_P, _P, _I, _P],
     "sort_rows_f32": [_P, _P, _LL, _I, _P],
     "bilateral_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                             _P],
-    "gmm_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "gmm_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_attention_fma_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                _P],
+    "flash_attention_fma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _I, _P],
+    "flash_attention_wgmma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                   _I, _P],
+    "gmm_fma_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gmm_fma_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gmm_wgmma_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -65,6 +72,8 @@ _BUILD_LOG = ""
 LAUNCHES: Dict[str, int] = {"conv2d": 0, "hist": 0, "spmv_ell": 0,
                             "probe_add_one": 0, "sort_bitonic": 0,
                             "bilateral": 0, "flash_attention": 0, "gmm": 0}
+# the same launches by C entry point, which tells a kernel's routes apart
+ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -141,8 +150,11 @@ def _sources() -> List[str]:
 
 
 def _digest(srcs: List[str]) -> str:
+    """Key of a build: the flags, every source and every shared header
+    under ``csrc/`` (an edited ``*.cuh`` rebuilds too)."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for s in sorted(set(srcs) | set(headers)):
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     return h.hexdigest()[:16]
@@ -226,17 +238,25 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
+        ENTRY_LAUNCHES[entry] += 1
 
 
 def reset_launches() -> None:
     with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, ENTRY_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     with _COUNT_LOCK:
         return dict(LAUNCHES)
+
+
+def entry_counts() -> Dict[str, int]:
+    """Launches by C entry point since the last ``reset_launches``."""
+    with _COUNT_LOCK:
+        return dict(ENTRY_LAUNCHES)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor,

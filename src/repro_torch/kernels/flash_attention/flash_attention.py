@@ -1,10 +1,20 @@
 """Blocked (flash) attention: the hand-written CUDA kernel.
 
-``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` (K7, the
-port of ``flash_attention_pallas``): one block per (head, 64-row query
-tile) walks the 64-key tiles with the running max, sum and accumulator
-in f32, and reads query head ``bh``'s K/V at head ``bh // rep``, so a
-grouped-query caller passes K/V with ``BH / rep`` heads and no repeat.
+``flash_attention_cuda`` launches K7, the port of
+``flash_attention_pallas``, on one of two routes that ``route`` picks
+from the dtype and the shape:
+
+* bf16 with 16-byte rows (``d % 8 == 0``), ``d <= 128`` and 16-byte
+  aligned bases -> ``csrc/flash_attention_wgmma.cu``, the tensor-core
+  kernel: TMA streams the K/V tiles through an mbarrier ring and one
+  warpgroup runs q k^T and p v on ``wgmma``;
+* f32 and any other shape -> ``csrc/flash_attention.cu``, the CUDA-core
+  kernel (f32 FMAs; TF32 would break the 2e-5 f32 tolerance).
+
+Both walk the 64-key tiles of a 64-row query tile with the running max,
+sum and accumulator in f32, and read query head ``bh``'s K/V at head
+``bh // rep``, so a grouped-query caller passes K/V with ``BH / rep``
+heads and no repeat.
 
 Its plain version is ``ref.attention_ref``, the unblocked f32 softmax:
 the reference's own implementation off the TPU with its autotune
@@ -18,9 +28,23 @@ import torch
 
 from repro_torch.kernels.common import check_cuda, launch
 
-MAX_D = 256                      # the kernel's shared-memory tiles
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+MAX_D = 256                      # the CUDA-core kernel's shared memory
+WGMMA_MAX_D = 128                # the tensor-core kernel's accumulator
+WGMMA_ENTRY = "flash_attention_wgmma_bf16"
+FMA_ENTRY = {torch.float32: "flash_attention_fma_f32",
+             torch.bfloat16: "flash_attention_fma_bf16"}
+
+
+def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """The C entry point for inputs of ``dtype`` with head size ``d``:
+    the tensor-core kernel for bf16 with 16-byte rows, ``d <= 128`` and
+    16-byte aligned bases (``aligned``), else the CUDA-core kernel."""
+    if dtype not in FMA_ENTRY:
+        raise ValueError(f"flash_attention: dtype {dtype} not supported")
+    if dtype == torch.bfloat16 and d % 8 == 0 and d <= WGMMA_MAX_D \
+            and aligned:
+        return WGMMA_ENTRY
+    return FMA_ENTRY[dtype]
 
 
 def _kv_rep(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
@@ -39,7 +63,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one GPU; d <= 256.  Returns (BH, T, d) in q's type.  The kernel
     defines no backward: inputs that require grad raise (the training
     slice brings the autograd.Function)."""
-    if q.dtype not in _ENTRY:
+    if q.dtype not in FMA_ENTRY:
         raise ValueError(f"flash_attention: dtype {q.dtype} not supported")
     dev = check_cuda("flash_attention", q, k, v, dtypes=(q.dtype,) * 3)
     if q.requires_grad or k.requires_grad or v.requires_grad:
@@ -61,7 +85,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"limit of 65535")
     out = torch.empty_like(q)
     if BH and T:
-        launch("flash_attention", _ENTRY[q.dtype], dev, q.data_ptr(),
-               k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, T, S, d,
-               rep, d ** -0.5, int(causal))
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+        launch("flash_attention", route(q.dtype, d, aligned), dev,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               BH, T, S, d, rep, d ** -0.5, int(causal))
     return out

@@ -1,9 +1,19 @@
 """Grouped (per-expert) matmul, the MoE dense-path hot spot: the
 hand-written CUDA kernel and its plain version.
 
-``gmm_cuda`` launches ``csrc/gmm.cu`` (K8, the port of ``gmm_pallas``):
-one block per (expert, 128-column tile of F, tile of C rows) walks the
-contraction in f32 and stores in x's type.
+``gmm_cuda`` launches K8, the port of ``gmm_pallas``, on one of two
+routes that ``route`` picks from the dtype and the shape:
+
+* bf16 with 16-byte rows (``D % 8 == 0`` and ``F % 8 == 0``) and
+  16-byte aligned bases -> ``csrc/gmm_wgmma.cu``, the tensor-core kernel:
+  out^T = w^T x^T on ``wgmma`` (the weight's F axis as its 64 rows, the
+  few tokens C as its N), the weights streamed by TMA through a 4-stage
+  mbarrier ring;
+* f32 and any other shape -> ``csrc/gmm.cu``, the CUDA-core kernel
+  (f32 FMAs; TF32 would break the 2e-4 f32 tolerance).
+
+Both sum in f32 over the contraction and store in x's type, one block
+per (expert, 128-column tile of F, tile of C rows).
 
 ``gmm_torch`` is the plain version and the CPU peer: the Pallas
 kernel's arithmetic (operands upcast to f32, an f32 product, the result
@@ -16,8 +26,20 @@ import torch
 
 from repro_torch.kernels.common import check_cuda, launch
 
-_ENTRY = {torch.float32: "gmm_f32", torch.bfloat16: "gmm_bf16"}
+WGMMA_ENTRY = "gmm_wgmma_bf16"
+FMA_ENTRY = {torch.float32: "gmm_fma_f32", torch.bfloat16: "gmm_fma_bf16"}
 _CHUNK = 1 << 28                 # f32 weight elements upcast at a time
+
+
+def route(dtype: torch.dtype, D: int, F: int, aligned: bool = True) -> str:
+    """The C entry point for operands of ``dtype`` with contraction ``D``
+    and width ``F``: the tensor-core kernel for bf16 with 16-byte rows
+    and 16-byte aligned bases (``aligned``), else the CUDA-core kernel."""
+    if dtype not in FMA_ENTRY:
+        raise ValueError(f"gmm: dtype {dtype} not supported")
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 and aligned:
+        return WGMMA_ENTRY
+    return FMA_ENTRY[dtype]
 
 
 def _shapes(x: torch.Tensor, w: torch.Tensor):
@@ -33,7 +55,7 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E, C, D); w: (E, D, F), contiguous, both f32 or both bf16 on
     one GPU.  Returns (E, C, F) in x's type.  The kernel defines no
     backward: inputs that require grad raise."""
-    if x.dtype not in _ENTRY:
+    if x.dtype not in FMA_ENTRY:
         raise ValueError(f"gmm: dtype {x.dtype} not supported")
     dev = check_cuda("gmm", x, w, dtypes=(x.dtype, x.dtype))
     if x.requires_grad or w.requires_grad:
@@ -45,8 +67,9 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, C, F), dtype=x.dtype, device=dev)
     if E and C and F:
         if D:
-            launch("gmm", _ENTRY[x.dtype], dev, x.data_ptr(), w.data_ptr(),
-                   out.data_ptr(), E, C, D, F)
+            aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            launch("gmm", route(x.dtype, D, F, aligned), dev, x.data_ptr(),
+                   w.data_ptr(), out.data_ptr(), E, C, D, F)
         else:
             out.zero_()
     return out

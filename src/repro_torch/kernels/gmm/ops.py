@@ -6,8 +6,9 @@ its kernel onto ``xla_einsum``, which has a VJP; serving needs none, so
 here every CUDA call launches K8.
 
 Autotuning is not ported yet: ``config=None`` is the only config, one
-fixed tiling of the kernel (128-column tiles, C tiles of up to 128 rows,
-a contraction step of 32).
+fixed tiling of each route of the kernel (128-column tiles of F, C tiles
+of up to 128 rows, a contraction step of 32 on the CUDA cores and of 64
+on the tensor cores).
 """
 from __future__ import annotations
 

@@ -172,6 +172,73 @@ def test_gmm_kernel_on_gpu(gpu, E, C, D, F, dtype):
                                rtol=tol, atol=tol)
 
 
+# bf16 cases by route: (BH, BHkv, T, S, d, causal, entry).  The
+# tensor-core kernel takes d % 8 == 0 up to 128: d 32/64/80/112/128,
+# GQA groups of 1, 2 and 8, T and S off the 64-row tiles, T != S both
+# ways, T = 1, causal and not, one query tile and many; d 36 (rows not
+# 16-byte multiples) and 256 (past its accumulator) go to the CUDA cores
+WGMMA_ATTN = "flash_attention_wgmma_bf16"
+ATTN_ROUTE_CASES = [
+    (4, 4, 64, 64, 64, True, WGMMA_ATTN), (8, 4, 100, 100, 80, True, WGMMA_ATTN),
+    (16, 2, 77, 130, 112, False, WGMMA_ATTN), (8, 1, 200, 130, 128, True, WGMMA_ATTN),
+    (6, 3, 50, 190, 32, True, WGMMA_ATTN), (16, 2, 1, 70, 112, True, WGMMA_ATTN),
+    (2, 2, 1, 1, 64, False, WGMMA_ATTN), (64, 8, 333, 333, 112, True, WGMMA_ATTN),
+    (4, 2, 130, 63, 128, False, WGMMA_ATTN), (3, 3, 65, 200, 80, True, WGMMA_ATTN),
+    (4, 2, 70, 70, 36, True, "flash_attention_fma_bf16"),
+    (2, 1, 65, 65, 256, False, "flash_attention_fma_bf16")]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("BH,BHkv,T,S,d,causal,entry", ATTN_ROUTE_CASES)
+def test_flash_attention_bf16_routes_on_gpu(gpu, BH, BHkv, T, S, d, causal,
+                                            entry):
+    rng = np.random.default_rng(BH * T + S * d + 1)
+    q, k, v = (_t(rng.standard_normal(shape).astype(np.float32)).to(
+        gpu, torch.bfloat16)
+        for shape in ((BH, T, d), (BHkv, S, d), (BHkv, S, d)))
+    common.reset_launches()
+    out = flash_attention_cuda(q, k, v, causal)
+    counts = common.entry_counts()
+    assert counts[entry] == 1 and sum(counts.values()) == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (BH, T, d)
+    rep = BH // BHkv
+    ref = attention_ref(q, k.repeat_interleave(rep, 0),
+                        v.repeat_interleave(rep, 0), causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+# (E, C, D, F, entry): C 1/4/7/13/24/104/200 (token tiles N of 8, 16,
+# 32, 64 and 128, and a second tile of C), D and F multiples of 8 off
+# the 64-row contraction step and the 128-column tile, E up to 384;
+# D 33 or F 130 (not multiples of 8) go to the CUDA cores
+WGMMA_GMM = "gmm_wgmma_bf16"
+GMM_ROUTE_CASES = [
+    (3, 1, 40, 24, WGMMA_GMM), (384, 4, 136, 72, WGMMA_GMM),
+    (5, 7, 200, 136, WGMMA_GMM), (6, 13, 88, 264, WGMMA_GMM),
+    (4, 24, 520, 136, WGMMA_GMM), (3, 104, 328, 200, WGMMA_GMM),
+    (2, 200, 72, 392, WGMMA_GMM), (2, 40, 64, 128, WGMMA_GMM),
+    (2, 70, 8, 8, WGMMA_GMM),
+    (5, 7, 33, 136, "gmm_fma_bf16"), (5, 7, 32, 130, "gmm_fma_bf16")]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("E,C,D,F,entry", GMM_ROUTE_CASES)
+def test_gmm_bf16_routes_on_gpu(gpu, E, C, D, F, entry):
+    rng = np.random.default_rng(E * C + D * F + 1)
+    x = _t(rng.standard_normal((E, C, D)).astype(np.float32)).to(
+        gpu, torch.bfloat16)
+    w = _t((rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(
+        np.float32)).to(gpu, torch.bfloat16)
+    common.reset_launches()
+    out = gmm_cuda(x, w)
+    counts = common.entry_counts()
+    assert counts[entry] == 1 and sum(counts.values()) == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (E, C, F)
+    torch.testing.assert_close(out.float(), gmm_torch(x, w).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
 @pytest.mark.needs_cuda
 def test_lm_kernels_refuse_inputs_that_require_grad(gpu):
     """No backward yet: nothing quietly differentiates through them."""
@@ -206,6 +273,9 @@ def test_lm_greedy_tokens_kernel_path_against_plain_path(gpu):
     # + one tail pass) in the MoE layer, at prefill and each of 8 steps
     assert counts["flash_attention"] == 2
     assert counts["gmm"] == 6 * 9
+    entries = common.entry_counts()
+    assert entries["flash_attention_wgmma_bf16"] == 2
+    assert entries["gmm_wgmma_bf16"] == 6 * 9
     common.reset_launches()
     with plain_kernels():
         plain, gaps, _ = greedy_with_gaps(cfg, params, prompt, 8)

@@ -22,6 +22,8 @@ attention 2e-5 in f32 and 0.05 in bf16 (the online softmax against the
 unblocked one), gmm 2e-4 in f32 (sums in another order) and 1e-2 in
 bf16 (one rounding of the output to bf16, relative 2^-8).
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,6 +61,9 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import (
+    flash_attention as flash_kernel)
+from repro_torch.kernels.gmm import gmm as gmm_kernel
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
 from repro_torch.kernels.gmm.ref import gmm_ref
@@ -441,6 +446,77 @@ def test_ops_refuse_other_configs(call):
     """Only the default tiling exists until autotuning is ported."""
     with pytest.raises(ValueError):
         OPS_CALLS[call]()
+
+
+# --------------------------------------------- the K7 and K8 routes
+@pytest.mark.parametrize("dtype,d,aligned,entry", [
+    (torch.bfloat16, 112, True, "flash_attention_wgmma_bf16"),
+    (torch.bfloat16, 32, True, "flash_attention_wgmma_bf16"),
+    (torch.bfloat16, 64, True, "flash_attention_wgmma_bf16"),
+    (torch.bfloat16, 80, True, "flash_attention_wgmma_bf16"),
+    (torch.bfloat16, 128, True, "flash_attention_wgmma_bf16"),
+    (torch.bfloat16, 8, True, "flash_attention_wgmma_bf16"),
+    (torch.bfloat16, 36, True, "flash_attention_fma_bf16"),
+    (torch.bfloat16, 136, True, "flash_attention_fma_bf16"),
+    (torch.bfloat16, 256, True, "flash_attention_fma_bf16"),
+    (torch.bfloat16, 112, False, "flash_attention_fma_bf16"),
+    (torch.float32, 112, True, "flash_attention_fma_f32"),
+    (torch.float32, 64, True, "flash_attention_fma_f32")])
+def test_flash_attention_route(dtype, d, aligned, entry):
+    """bf16 with 16-byte rows, d <= 128 and aligned bases goes to the
+    tensor cores; f32 (TF32 would break its 2e-5) and every other shape
+    to the CUDA cores."""
+    assert flash_kernel.route(dtype, d, aligned) == entry
+    assert entry in common.ENTRY_LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,D,F,aligned,entry", [
+    (torch.bfloat16, 7168, 2048, True, "gmm_wgmma_bf16"),
+    (torch.bfloat16, 2048, 7168, True, "gmm_wgmma_bf16"),
+    (torch.bfloat16, 8, 24, True, "gmm_wgmma_bf16"),
+    (torch.bfloat16, 33, 136, True, "gmm_fma_bf16"),
+    (torch.bfloat16, 32, 130, True, "gmm_fma_bf16"),
+    (torch.bfloat16, 7168, 2048, False, "gmm_fma_bf16"),
+    (torch.float32, 7168, 2048, True, "gmm_fma_f32"),
+    (torch.float32, 33, 11, True, "gmm_fma_f32")])
+def test_gmm_route(dtype, D, F, aligned, entry):
+    assert gmm_kernel.route(dtype, D, F, aligned) == entry
+    assert entry in common.ENTRY_LAUNCHES
+
+
+@pytest.mark.parametrize("route", [flash_kernel.route,
+                                   lambda dt, d, a: gmm_kernel.route(
+                                       dt, d, d, a)])
+def test_routes_refuse_other_dtypes(route):
+    with pytest.raises(ValueError, match="not supported"):
+        route(torch.float16, 64, True)
+
+
+def test_launch_counts_reset_with_entry_counts():
+    """Nothing launches on the CPU; a reset zeroes both tallies and the
+    entry tally names every C entry point the library binds."""
+    common.reset_launches()
+    assert set(common.entry_counts()) == set(common._SIGNATURES)
+    assert not any(common.entry_counts().values())
+    assert not any(common.launch_counts().values())
+
+
+def test_build_digest_covers_shared_headers(monkeypatch, tmp_path):
+    """An edited csrc/*.cuh (the tensor-core kernels' shared helpers)
+    changes the build key, so the library is rebuilt."""
+    for name in ("a.cu", "b.cu"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    header = tmp_path / "shared.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(common, "CSRC_DIR", str(tmp_path))
+    srcs = common._sources()
+    assert [os.path.basename(s) for s in srcs] == ["a.cu", "b.cu"]
+    before = common._digest(srcs)
+    assert common._digest(srcs) == before
+    header.write_text("// v2\n")
+    assert common._digest(srcs) != before
+    (tmp_path / "b.cu").write_text("// b, edited\n")
+    assert common._digest(srcs) != before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
