@@ -5,12 +5,17 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds the hand-written CUDA kernels (``src/repro_torch/csrc/*.cu``)
-   with ``nvcc`` for ``sm_90a`` into ``src/repro_torch/build/``.
+   with ``nvcc`` for ``sm_90a`` into ``src/repro_torch/build/``, prints
+   ptxas's registers and spills per kernel, and fails if K5's or K6's
+   register-route kernel spills to local memory.
 3. Kernel phase: calls each kernel's wrapper on the card at the shapes
    the main path gives it and at ragged shapes, holds the result
-   against its plain PyTorch version on the same inputs, and times
-   kernel, plain version and (where one exists) the single PyTorch
-   call that computes the same function, with CUDA events.
+   against its plain PyTorch version on the same inputs (K5 bitwise at
+   every row length 2-8192, K6 at every radius 1-7 and at 9, each
+   case on the C entry ``bilateral.route`` names), and times kernel,
+   plain version and (where one exists) the single PyTorch call that
+   computes the same function, with CUDA events; K6's first version
+   (``bilateral_f32``) is timed beside its register route.
 4. Hybrid phase: ``HybridExecutor()`` pairs the GPU (``accel``) with
    the CPU (``host``) in ``threads`` mode and runs conv (3600x3600,
    K=15), hist (2^26 keys, 256 bins), spmv (n=8192), bilateral
@@ -19,7 +24,8 @@
    forced split that puts work on the CPU, then sort's leaf sorter
    (``sort leaf``: the bitonic kernel over the keys in 1024-wide rows);
    checks every value against a reference, and checks that every
-   kernel on the path was launched.
+   kernel on the path was launched, K5 and K6 through their register
+   routes (``MAIN_ENTRY``).
 5. LM phase: kimi-k2 at its full width, cut to depth 2 (the dense first
    layer and one MoE layer, ~20 B parameters, ~40 GB of bf16 weights
    from seed 0), serves a batch of 4 prompts of 1024 tokens through
@@ -80,15 +86,21 @@ SOURCE = {
                   "src/repro/kernels/bilateral/bilateral.py:66"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention/"
-                        "flash_attention.py:94"),
+                        "flash_attention.py:75"),
     "gmm": ("src/repro_torch/csrc/gmm_wgmma.cu",
-            "src/repro/kernels/gmm/gmm.py:58"),
+            "src/repro/kernels/gmm/gmm.py:40"),
 }
 # the C entry points the LM's main path must launch (bf16, aligned rows):
 # the tensor-core routes of K7 and K8, never their CUDA-core routes
 LM_ENTRY = {"flash_attention": ("flash_attention_wgmma_bf16",
                                 "flash_attention_fma_bf16"),
             "gmm": ("gmm_wgmma_bf16", "gmm_fma_bf16")}
+# the C entry points the work-shared path must launch for K5 and K6: the
+# register-route kernels, never K6's first version
+MAIN_ENTRY = {"sort_bitonic": ("sort_rows_reg_f32", None),
+              "bilateral": ("bilateral_reg_f32", "bilateral_f32")}
+# the kernels whose ptxas report must show no spill to local memory
+NO_SPILL = ("sort_rows_reg_kernel", "bilateral_reg_kernel")
 
 CONV_SIZE, CONV_K = 3600, 15
 HIST_N, HIST_BINS = 1 << 26, 256
@@ -150,6 +162,37 @@ def check(torch, name, out, ref, what) -> float:
     return (out - ref).abs().max().item()
 
 
+def check_entry(label, name, counts, entries) -> None:
+    """Every launch of ``name`` in ``counts`` went through its
+    MAIN_ENTRY route, and at least one happened."""
+    want, other = MAIN_ENTRY[name]
+    if counts[name] <= 0 or entries[want] != counts[name] \
+            or (other and entries[other]):
+        raise AssertionError(
+            f"{label}: {name} launched {counts[name]} times, "
+            f"{entries[want]} through {want}"
+            + (f" and {entries[other]} through {other}" if other else ""))
+    print(f"{label}: {name} launches by entry: {want}={entries[want]}"
+          + (f" {other}={entries[other]}" if other else ""), flush=True)
+
+
+def ptxas_report(log: str) -> None:
+    """Print ptxas's registers and spills per kernel; fail where a
+    kernel of NO_SPILL spills."""
+    func = None
+    for line in log.splitlines():
+        if "Compiling entry" in line or "registers" in line:
+            print(f"build: {line.strip()}")
+        if "Function properties for" in line:
+            func = line.split("for", 1)[1].strip()
+        elif "spill" in line and func:
+            print(f"build: {func[:90]}: {line.strip()}")
+            if any(k in func for k in NO_SPILL) and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in line:
+                raise AssertionError(f"{func} spills: {line.strip()}")
+            func = None
+
+
 def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape,
                peak_flops=PEAK_F32_FLOPS, entry=None):
     """The JSON row of one kernel at the main path's shape; the bound is
@@ -175,8 +218,11 @@ def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape,
 def kernel_phase(torch, np, dev, flush):
     from repro_torch.core.cost_model import probe_add_one
     from repro_torch.core.host_offload import bilateral_luts
+    from repro_torch.kernels import common
     from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                          bilateral_lut_torch)
+    from repro_torch.kernels.bilateral.bilateral import (
+        route as bilateral_route)
     from repro_torch.kernels.conv2d.conv2d import (conv2d_cuda,
                                                    conv2d_shift_add)
     from repro_torch.kernels.conv2d.ref import conv2d_ref
@@ -186,6 +232,8 @@ def kernel_phase(torch, np, dev, flush):
     from repro_torch.kernels.spmv.ref import spmv_ell_ref
     from repro_torch.kernels.sort_bitonic.sort_bitonic import (
         bitonic_rows_torch, sort_rows_cuda)
+    from repro_torch.kernels.sort_bitonic.sort_bitonic import (
+        ENTRY as SORT_ENTRY)
     from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
     from repro_torch.workloads import bilateral as bilateral_w
     from repro_torch.workloads import sort as sort_w
@@ -301,10 +349,23 @@ def kernel_phase(torch, np, dev, flush):
         1.0 * t.numel(), 8.0 * t.numel(),
         time_ms(torch, lambda: torch.add(t, 1.0), flush), "128x128")
 
-    # K5 sort_bitonic: ragged G and L (one pair, L = 8192) with +inf
-    # padding, -inf, duplicates and -0.0 beside 0.0, then the main
-    # path's rows (the sort workload's 2^24 keys as 1024-wide rows)
-    for G, L in [(10, 16), (70, 64), (33, 256), (1, 2), (5, 8192)]:
+    # K5 sort_bitonic: ragged G and L (every row length from 2 to 8192,
+    # G off the rows a block takes) with +inf padding, -inf, duplicates
+    # and -0.0 beside 0.0, then the main path's rows (the sort workload's
+    # 2^24 keys as 1024-wide rows).  Bitwise the plain network's.
+    def sort_case(xt, what):
+        out = sort_rows_cuda(xt)
+        plain = bitonic_rows_torch(xt)
+        if not torch.equal(out.view(torch.int32), plain.view(torch.int32)):
+            raise AssertionError(f"sort_bitonic {what}: not bitwise the "
+                                 f"plain network")
+        check(torch, "sort_bitonic", out, torch.sort(xt, dim=1).values,
+              f"{what} against torch.sort")
+        return out
+
+    for G, L in [(10, 16), (70, 64), (33, 256), (1, 2), (5, 8192),
+                 (515, 4), (1029, 2), (133, 8), (37, 32), (21, 128),
+                 (9, 512), (7, 1024), (3, 2048), (6, 4096)]:
         x = rng.standard_normal((G, L)).astype(np.float32)
         x[0, L // 2:] = np.inf
         x[-1, :L // 4] = -np.inf
@@ -312,65 +373,90 @@ def kernel_phase(torch, np, dev, flush):
             x[1] = np.round(x[1])
             x[2, ::2], x[2, 1::2] = -0.0, 0.0
         xt = torch.tensor(x, device=dev)
-        out = sort_rows_cuda(xt)
-        check(torch, "sort_bitonic", out, bitonic_rows_torch(xt),
-              f"G={G} L={L}")
-        lib = torch.sort(xt, dim=1).values
-        check(torch, "sort_bitonic", out, lib,
-              f"G={G} L={L} against torch.sort")
+        out = sort_case(xt, f"G={G} L={L}")
         if G > 2:
             # == cannot tell -0.0 from 0.0: report (not assert) whether
-            # the signed zeros come out in the plain network's order and
-            # in torch.sort's
-            bits = out[2].view(torch.int32)
-            plain = torch.equal(bits, bitonic_rows_torch(xt)[2].view(
-                torch.int32))
-            same = torch.equal(bits, lib[2].view(torch.int32))
+            # the signed zeros come out in torch.sort's order too
+            same = torch.equal(out[2].view(torch.int32),
+                               torch.sort(xt, dim=1).values[2].view(
+                                   torch.int32))
             print(f"kernel sort_bitonic G={G} L={L}: -0.0/0.0 row bitwise "
-                  f"equal to the plain network: {plain}, to torch.sort: "
+                  f"equal to the plain network: True, to torch.sort: "
                   f"{same}", flush=True)
     x = torch.tensor(sort_w.make_inputs(SORT_N), device=dev).reshape(
         -1, SORT_TILE)
     G, L = x.shape
-    err = check(torch, "sort_bitonic", sort_rows_cuda(x),
-                bitonic_rows_torch(x), "main path rows")
-    check(torch, "sort_bitonic", sort_rows_cuda(x),
-          torch.sort(x, dim=1).values, "main path rows against torch.sort")
+    common.reset_launches()
+    sort_case(x, "main path rows")
+    check_entry("kernel sort_bitonic main path rows", "sort_bitonic",
+                common.launch_counts(), common.entry_counts())
     stages = (L.bit_length() - 1) * L.bit_length() // 2
-    row("sort_bitonic", err,
+    row("sort_bitonic", 0.0,
         time_ms(torch, lambda: sort_rows_cuda(x), flush),
         time_ms(torch, lambda: bitonic_rows_torch(x), flush, iters=10),
         2.0 * G * (L // 2) * stages,            # compare + select per pair
         8.0 * G * L,
         time_ms(torch, lambda: torch.sort(x, dim=1), flush),
-        f"G={G} L={L}")
+        f"G={G} L={L}", PEAK_F32_FLOPS, SORT_ENTRY)
     del x
 
-    # K6 bilateral: ragged H/W (a 1-row block, odd W), radius 1, 2 and 7,
-    # then the main path's chunk (225 rows + 14 halo rows of the
-    # 3600-wide image, K=15)
-    for H, W, radius in [(37, 101, 1), (50, 33, 2), (129, 77, 7),
-                         (1, 301, 7), (9, 15, 7)]:
+    # K6 bilateral: ragged H/W (a 1-row block, odd W) at every radius
+    # 1-7 (the register route) and 9 (K = 19, the first version), then
+    # the main path's chunk (225 rows + 14 halo rows of the 3600-wide
+    # image, K=15).  Error 0 against the plain LUT filter on both.
+    for H, W, radius in [(37, 101, 1), (50, 33, 2), (129, 77, 3),
+                         (1, 301, 4), (65, 31, 5), (9, 15, 6),
+                         (129, 77, 7), (1, 301, 7), (9, 15, 7),
+                         (70, 45, 9)]:
         img = torch.tensor((rng.random((H, W)) * 255).astype(np.float32),
                            device=dev)
         sp, rl = (torch.tensor(a, device=dev) for a in bilateral_luts(
             BILAT_SIGMA_S, BILAT_SIGMA_R, radius))
-        check(torch, "bilateral", bilateral_cuda(img, sp, rl),
-              bilateral_lut_torch(img, sp, rl), f"{H}x{W} r={radius}")
+        entry = bilateral_route(sp.shape[0], rl.numel())
+        common.reset_launches()
+        out = bilateral_cuda(img, sp, rl)
+        if common.entry_counts()[entry] != 1:
+            raise AssertionError(f"bilateral {H}x{W} r={radius}: not "
+                                 f"launched through {entry}")
+        err = check(torch, "bilateral", out,
+                    bilateral_lut_torch(img, sp, rl),
+                    f"{H}x{W} r={radius} ({entry})")
+        print(f"kernel bilateral {H}x{W} r={radius}: entry={entry} "
+              f"max_abs_err={err!r}", flush=True)
     H = BILAT_SIZE // 16 + 2 * BILAT_RADIUS
     img = torch.tensor(bilateral_w.make_inputs(BILAT_SIZE)[:H], device=dev)
     sp, rl = (torch.tensor(a, device=dev) for a in bilateral_luts(
         BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS))
     K = sp.shape[0]
-    err = check(torch, "bilateral", bilateral_cuda(img, sp, rl),
-                bilateral_lut_torch(img, sp, rl), "main path chunk")
+    common.reset_launches()
+    out = bilateral_cuda(img, sp, rl)
+    check_entry("kernel bilateral main path chunk", "bilateral",
+                common.launch_counts(), common.entry_counts())
+    err = check(torch, "bilateral", out, bilateral_lut_torch(img, sp, rl),
+                "main path chunk")
     row("bilateral", err,
         time_ms(torch, lambda: bilateral_cuda(img, sp, rl), flush),
         time_ms(torch, lambda: bilateral_lut_torch(img, sp, rl), flush,
                 iters=10),
         6.0 * H * BILAT_SIZE * K * K,           # the reference's count
         4.0 * (2 * H * BILAT_SIZE + K * K + rl.numel()),
-        None, f"{H}x{BILAT_SIZE} K={K}")
+        None, f"{H}x{BILAT_SIZE} K={K}", PEAK_F32_FLOPS,
+        bilateral_route(K, rl.numel()))
+    # the first version (still the route past K = 15) at the same chunk,
+    # timed in the same run: what the register route bought
+    first = torch.empty_like(img)
+
+    def bilateral_first():
+        common.launch("bilateral", "bilateral_f32", dev, img.data_ptr(),
+                      sp.data_ptr(), rl.data_ptr(), first.data_ptr(), H,
+                      BILAT_SIZE, K, rl.numel())
+
+    bilateral_first()
+    check(torch, "bilateral", first, bilateral_lut_torch(img, sp, rl),
+          "main path chunk, first version")
+    print(f"kernel bilateral first version (bilateral_f32) {H}x"
+          f"{BILAT_SIZE} K={K}: ms="
+          f"{time_ms(torch, bilateral_first, flush):.4f}", flush=True)
     return rows
 
 
@@ -511,6 +597,9 @@ def hybrid_phase(torch, np):
         counts = common.launch_counts()
         print(f"hybrid {label}: launches={counts}")
         workload, kind = label.split()
+        if workload == "bilateral":
+            check_entry(f"hybrid {label}", "bilateral", counts,
+                        common.entry_counts())
         if kind in ("cold", "warm"):
             per_call[label] = counts
             if counts[OWN_KERNEL[workload]] <= 0:
@@ -645,8 +734,8 @@ def hybrid_phase(torch, np):
     counts = common.launch_counts()
     per_call["sort leaf"] = counts
     print(f"hybrid sort leaf: launches={counts}")
-    if counts["sort_bitonic"] <= 0:
-        raise AssertionError("sort leaf: sort_bitonic was not launched")
+    check_entry("hybrid sort leaf", "sort_bitonic", counts,
+                common.entry_counts())
     if not (torch.equal(value, torch.sort(keys_gpu).values)
             and torch.equal(value.cpu(), sort_ref)):
         raise AssertionError("sort leaf: value differs from torch.sort")
@@ -968,9 +1057,7 @@ def main() -> None:
     t0 = time.perf_counter()
     common.kernel_lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {common.BUILD_DIR}")
-    for line in common.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"build: {line.strip()}")
+    ptxas_report(common.build_log())
 
     dev = torch.device("cuda", 0)
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)

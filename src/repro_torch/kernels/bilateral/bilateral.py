@@ -7,8 +7,16 @@ the host (``core.host_offload.bilateral_luts``) and the device filter
 only looks them up.
 
 ``bilateral_cuda`` launches ``csrc/bilateral.cu`` (K6, the port of
-``bilateral_pallas``): one block per 32x8 output tile stages its
-edge-clamped halo window and both LUTs in shared memory.
+``bilateral_pallas``) on the C entry ``route`` picks:
+
+* odd K <= 15 and at most 256 levels (every radius the workloads use)
+  -> ``bilateral_reg_f32``: one block per 64x16 output tile, 2x2
+  pixels a thread, K a compile-time value, the range LUT replicated
+  across the 32 shared-memory banks;
+* any other K or level count -> ``bilateral_f32``, the first version:
+  one block per 32x8 tile, one pixel a thread.
+
+Both stage the edge-clamped halo window and the LUTs in shared memory.
 
 ``bilateral_lut_torch`` is the same LUT filter as K*K shifted lookups
 in plain tensor ops — the reference's ``xla_lut`` candidate, its
@@ -19,10 +27,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.common import check_cuda, launch
+from repro_torch.kernels.common import check_cuda, kernel_lib, launch
 
-TILE_H, TILE_W = 8, 32
+TILE_W, TILE_H = 32, 8           # bilateral_f32's output tile
+REG_TILE_W, REG_TILE_H = 64, 16  # bilateral_reg_f32's
+REG_MAX_K, REG_MAX_LEVELS = 15, 256
+REG_ENTRY, TILED_ENTRY = "bilateral_reg_f32", "bilateral_f32"
 _SMEM_LIMIT = 48 * 1024          # static launch limit, no opt-in needed
+
+
+def route(K: int, n_levels: int) -> str:
+    """The C entry point for a (K, K) spatial LUT and ``n_levels`` range
+    levels: the register-blocked kernel (K a template argument, the
+    range LUT replicated 32 times) for odd K <= 15 and at most 256
+    levels, else the first version."""
+    if K % 2 and K <= REG_MAX_K and n_levels <= REG_MAX_LEVELS:
+        return REG_ENTRY
+    return TILED_ENTRY
+
+
+def smem_bytes(entry: str, K: int, n_levels: int) -> int:
+    """Shared memory of one block of ``entry``: the halo window, the
+    spatial LUT and the range LUT (32 copies on the register route)."""
+    if entry == REG_ENTRY:
+        return 4 * ((REG_TILE_W + K - 1) * (REG_TILE_H + K - 1) + K * K
+                    + 32 * n_levels)
+    return 4 * ((TILE_W + K - 1) * (TILE_H + K - 1) + K * K + n_levels)
 
 
 def bilateral_cuda(img: torch.Tensor, sp: torch.Tensor, rl: torch.Tensor
@@ -40,18 +70,34 @@ def bilateral_cuda(img: torch.Tensor, sp: torch.Tensor, rl: torch.Tensor
     H, W = img.shape
     K = sp.shape[0]
     n_levels = rl.shape[0]
-    smem = 4 * ((TILE_W + K - 1) * (TILE_H + K - 1) + K * K + n_levels)
+    entry = route(K, n_levels)
+    smem = smem_bytes(entry, K, n_levels)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"bilateral: K={K} with {n_levels} levels needs "
                          f"{smem} B of shared memory")
-    if -(-H // TILE_H) > 65535:
+    tile_h = REG_TILE_H if entry == REG_ENTRY else TILE_H
+    if -(-H // tile_h) > 65535:
         raise ValueError(f"bilateral: H={H} exceeds the grid's row limit")
     out = torch.empty((H, W), dtype=torch.float32, device=dev)
     if H and W:
-        launch("bilateral", "bilateral_f32", dev, img.data_ptr(),
-               sp.data_ptr(), rl.data_ptr(), out.data_ptr(), H, W, K,
-               n_levels)
+        launch("bilateral", entry, dev, img.data_ptr(), sp.data_ptr(),
+               rl.data_ptr(), out.data_ptr(), H, W, K, n_levels)
     return out
+
+
+def level_index_mismatches(lo: int, hi: int, n_levels: int,
+                           device: torch.device) -> int:
+    """How many f32 bit patterns in [lo, hi) (NaNs skipped) the register
+    route's level index (trunc(|t|) by an add rounded toward zero, then
+    one min) maps elsewhere than ``(int)|t|`` clamped to
+    [0, n_levels - 1]; counted on the GPU.  Not a launch of K6."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    err = kernel_lib().bilateral_level_index_check(
+        lo, hi, n_levels, count.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bilateral_level_index_check: CUDA error {err}")
+    return int(count.item())
 
 
 def bilateral_lut_torch(img: torch.Tensor, sp: torch.Tensor,

@@ -2,8 +2,8 @@
 to end).  The CUDA kernel runs on a GPU tensor, the plain LUT filter
 (the reference's ``xla_lut``, its default off the TPU) on a CPU tensor.
 
-Autotuning is not ported yet: ``config=None`` is the only config, one
-fixed tiling of the kernel (32x8 output tiles).
+Autotuning is not ported yet: ``config=None`` is the only config, the
+kernel's fixed tiling on the route ``bilateral.route`` picks.
 """
 from __future__ import annotations
 

@@ -43,8 +43,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
+_P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_ulonglong, ctypes.c_float)
 # C entry points of csrc/*.cu: argument types (the trailing stream is a
 # pointer too); every one returns cudaGetLastError() as an int
 _SIGNATURES = {
@@ -52,8 +52,10 @@ _SIGNATURES = {
     "hist_i32": [_P, _LL, _I, _I, _P, _P],
     "spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "probe_add_one_f32": [_P, _P, _I, _P],
-    "sort_rows_f32": [_P, _P, _LL, _I, _P],
+    "sort_rows_reg_f32": [_P, _P, _LL, _I, _P],
     "bilateral_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bilateral_reg_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bilateral_level_index_check": [_ULL, _ULL, _I, _P, _P],
     "flash_attention_fma_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                 _P],
     "flash_attention_fma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

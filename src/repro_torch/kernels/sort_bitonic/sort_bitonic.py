@@ -2,8 +2,12 @@
 hand-written CUDA kernel and its plain version.
 
 ``sort_rows_cuda`` launches ``csrc/sort_bitonic.cu`` (K5, the port of
-``sort_rows_pallas``): one block sorts whole rows in shared memory with
-the log2(L)*(log2(L)+1)/2 compare-exchange stages of a bitonic network.
+``sort_rows_pallas``, C entry ``ENTRY``): the log2(L)*(log2(L)+1)/2
+compare-exchange stages of a bitonic network with each thread's 8
+elements in registers; a stage of stride j < 8 runs inside a thread,
+j < 256 across a warp's lanes (``__shfl_xor_sync``), and only the
+longer strides through shared memory.  It takes every row length the
+wrapper accepts, so it is K5's only route.
 
 ``bitonic_rows_torch`` is the same network as plain tensor ops over the
 whole array (the reference's ``_bitonic_rows``): the stride-j partner
@@ -19,7 +23,8 @@ import torch
 
 from repro_torch.kernels.common import check_cuda, launch
 
-MAX_L = 8192                     # one row in one block's shared memory
+MAX_L = 8192                     # one row in one block: 1024 threads x 8
+ENTRY = "sort_rows_reg_f32"
 
 
 def sort_rows_cuda(x: torch.Tensor) -> torch.Tensor:
@@ -35,10 +40,10 @@ def sort_rows_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sort_bitonic: L={L} must be a power of two")
     if L > MAX_L:
         raise ValueError(f"sort_bitonic: L={L} exceeds {MAX_L}, the "
-                         f"longest row one block's shared memory holds")
+                         f"longest row one block holds")
     out = torch.empty_like(x)
     if G and L > 1:
-        launch("sort_bitonic", "sort_rows_f32", dev, x.data_ptr(),
+        launch("sort_bitonic", ENTRY, dev, x.data_ptr(),
                out.data_ptr(), G, L)
     elif G:
         out.copy_(x)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.cost_model import probe_add_one
 from repro_torch.core.host_offload import bilateral_luts
 from repro_torch.kernels import common
+from repro_torch.kernels.bilateral import bilateral as bilateral_kernel
 from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                      bilateral_lut_torch)
 from repro_torch.kernels.conv2d.conv2d import conv2d_cuda, conv2d_shift_add
@@ -125,6 +126,100 @@ def test_bilateral_kernel_on_gpu(gpu, H, W, radius):
     torch.testing.assert_close(bilateral_cuda(img, sp, rl),
                                bilateral_lut_torch(img, sp, rl),
                                rtol=1e-3, atol=1e-3)
+
+
+def _sort_rows_of_every_kind(G, L, seed):
+    """(G, L) rows: random, already sorted, reversed, all equal, +-inf
+    with duplicates, -0.0 beside 0.0, and +inf padding."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((G, L)).astype(np.float32)
+    x[1] = np.sort(x[1])
+    x[2] = np.sort(x[2])[::-1]
+    x[3] = 0.75
+    x[4] = np.round(x[4])
+    x[4, ::3] = np.inf
+    x[4, 1::5] = -np.inf
+    x[5, ::2], x[5, 1::2] = -0.0, 0.0
+    x[6, L // 2:] = np.inf
+    x[7] = np.where(rng.random(L) < 0.5, -0.0, 0.0)
+    return x
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("L", [1 << p for p in range(1, 14)])
+def test_sort_bitonic_register_kernel_on_gpu(gpu, L):
+    """Every power-of-two row length on the register/shuffle kernel, G
+    not a multiple of the rows a block takes (1024 // L, or 1): bitwise
+    the plain network (signed zeros in its order) and == torch.sort."""
+    G = max(1024 // L, 1) * 3 + 5
+    x = _t(_sort_rows_of_every_kind(G, L, L)).to(gpu)
+    common.reset_launches()
+    out = sort_rows_cuda(x)
+    counts = common.entry_counts()
+    assert counts["sort_rows_reg_f32"] == 1 and sum(counts.values()) == 1
+    assert torch.equal(out.view(torch.int32),
+                       bitonic_rows_torch(x).view(torch.int32))
+    assert torch.equal(out, torch.sort(x, dim=1).values)
+
+
+@pytest.mark.needs_cuda
+def test_sort_bitonic_register_kernel_off_16_byte_alignment(gpu):
+    """A view that starts one float into its storage takes the kernel's
+    scalar loads and stores."""
+    x = _t(_sort_rows_of_every_kind(9, 256, 3).reshape(-1)).to(gpu)
+    flat = torch.cat([torch.zeros(1, device=gpu), x])
+    rows = flat[1:].view(9, 256)
+    assert rows.data_ptr() % 16
+    out = sort_rows_cuda(rows)
+    assert torch.equal(out.view(torch.int32),
+                       bitonic_rows_torch(rows).view(torch.int32))
+
+
+# (H, W, radius): ragged H and W, a 1-row image, odd W; radius 1-7 on the
+# register route, 9 (K = 19) on the first version
+BILAT_ROUTE_CASES = [(37, 101, 1), (50, 33, 2), (129, 77, 3), (1, 301, 4),
+                     (65, 31, 5), (9, 15, 6), (239, 97, 7), (70, 45, 9)]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("H,W,radius", BILAT_ROUTE_CASES)
+def test_bilateral_routes_on_gpu(gpu, H, W, radius):
+    """Max error 0 against the plain LUT filter on either route."""
+    img = _t((np.random.default_rng(H * W + radius).random((H, W)) * 255)
+             .astype(np.float32)).to(gpu)
+    sp, rl = (_t(a).to(gpu) for a in bilateral_luts(3.0, 30.0, radius))
+    entry = bilateral_kernel.route(2 * radius + 1, rl.numel())
+    assert entry == ("bilateral_reg_f32" if radius <= 7 else "bilateral_f32")
+    common.reset_launches()
+    out = bilateral_cuda(img, sp, rl)
+    counts = common.entry_counts()
+    assert counts[entry] == 1 and sum(counts.values()) == 1
+    assert torch.equal(out, bilateral_lut_torch(img, sp, rl))
+
+
+@pytest.mark.needs_cuda
+def test_bilateral_first_version_past_256_levels(gpu):
+    """A 300-level range LUT keeps the first version."""
+    rng = np.random.default_rng(11)
+    img = _t((rng.random((40, 70)) * 299).astype(np.float32)).to(gpu)
+    sp, _ = bilateral_luts(2.0, 25.0, 2)
+    sp = _t(sp).to(gpu)
+    rl = _t(np.exp(-np.arange(300) / 90.0).astype(np.float32)).to(gpu)
+    common.reset_launches()
+    out = bilateral_cuda(img, sp, rl)
+    assert common.entry_counts()["bilateral_f32"] == 1
+    assert torch.equal(out, bilateral_lut_torch(img, sp, rl))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("n_levels", [256, 1, 100])
+def test_bilateral_level_index_matches_int_truncation(gpu, n_levels):
+    """The register route's level index (an add rounded toward zero and
+    one min, no F2I) equals (int)|t| clamped to [0, n_levels - 1] for
+    every f32 bit pattern but the NaNs: [0, 256) and everything above,
+    both signs."""
+    assert bilateral_kernel.level_index_mismatches(
+        0, 1 << 32, n_levels, gpu) == 0
 
 
 # (BH, BHkv, T, S, d, causal): d 32/80/112/128, GQA groups of 1, 2 and

@@ -50,6 +50,7 @@ from repro.workloads import sort as ref_sort
 from repro_torch.core.cost_model import probe_add_one
 from repro_torch.core.host_offload import bilateral_luts
 from repro_torch.kernels import common
+from repro_torch.kernels.bilateral import bilateral as bilateral_kernel
 from repro_torch.kernels.bilateral import ops as bilateral_ops
 from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                      bilateral_lut_torch)
@@ -72,6 +73,7 @@ from repro_torch.kernels.hist.hist import hist_bincount, hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
 from repro_torch.kernels.sort_bitonic import ops as sort_ops
 from repro_torch.kernels.sort_bitonic.ref import sort_rows_ref
+from repro_torch.kernels.sort_bitonic import sort_bitonic as sort_kernel
 from repro_torch.kernels.sort_bitonic.sort_bitonic import (
     bitonic_rows_torch, sort_rows_cuda)
 from repro_torch.kernels.spmv import ops as spmv_ops
@@ -490,6 +492,47 @@ def test_gmm_route(dtype, D, F, aligned, entry):
 def test_routes_refuse_other_dtypes(route):
     with pytest.raises(ValueError, match="not supported"):
         route(torch.float16, 64, True)
+
+
+# ------------------------------------------------ the K5 and K6 routes
+@pytest.mark.parametrize("K,n_levels,entry", [
+    (15, 256, "bilateral_reg_f32"), (1, 256, "bilateral_reg_f32"),
+    (3, 256, "bilateral_reg_f32"), (5, 256, "bilateral_reg_f32"),
+    (7, 256, "bilateral_reg_f32"), (9, 256, "bilateral_reg_f32"),
+    (11, 256, "bilateral_reg_f32"), (13, 256, "bilateral_reg_f32"),
+    (15, 1, "bilateral_reg_f32"), (3, 100, "bilateral_reg_f32"),
+    (17, 256, "bilateral_f32"), (19, 256, "bilateral_f32"),
+    (15, 257, "bilateral_f32"), (3, 1000, "bilateral_f32")])
+def test_bilateral_route(K, n_levels, entry):
+    """Odd K up to 15 (radius 1-7, every radius the workloads use) with
+    at most 256 levels take the register-blocked kernel; larger K or
+    level counts keep the first version."""
+    assert bilateral_kernel.route(K, n_levels) == entry
+    assert entry in common.ENTRY_LAUNCHES
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 7, 9, 11, 13, 15])
+def test_bilateral_register_route_fits_static_shared_memory(K):
+    """The register route's block (halo window, spatial LUT and 32
+    copies of 256 levels) stays under the 48 KB a launch gets without
+    an opt-in, and above the first version's (the replicated table)."""
+    reg = bilateral_kernel.smem_bytes(bilateral_kernel.REG_ENTRY, K, 256)
+    tiled = bilateral_kernel.smem_bytes(bilateral_kernel.TILED_ENTRY, K, 256)
+    assert reg <= 48 * 1024
+    assert reg - 4 * (64 + K - 1) * (16 + K - 1) - 4 * K * K == 32 * 256 * 4
+    assert tiled < reg
+
+
+def test_new_k5_k6_entries_are_bound():
+    """The entry tally names the register-route entries of K5 and K6 and
+    K6's first version; K5's first version is gone."""
+    entries = common.entry_counts()
+    for name in (sort_kernel.ENTRY, bilateral_kernel.REG_ENTRY,
+                 bilateral_kernel.TILED_ENTRY,
+                 "bilateral_level_index_check"):
+        assert name in entries and name in common._SIGNATURES
+    assert sort_kernel.ENTRY == "sort_rows_reg_f32"
+    assert "sort_rows_f32" not in entries
 
 
 def test_launch_counts_reset_with_entry_counts():
