@@ -6,16 +6,19 @@
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds the hand-written CUDA kernels (``src/repro_torch/csrc/*.cu``)
    with ``nvcc`` for ``sm_90a`` into ``src/repro_torch/build/``, prints
-   ptxas's registers and spills per kernel, and fails if K5's or K6's
-   register-route kernel spills to local memory.
+   ptxas's registers and spills per kernel, and fails if a kernel of
+   K1's, K2's, K5's or K6's redesigned routes spills to local memory.
 3. Kernel phase: calls each kernel's wrapper on the card at the shapes
    the main path gives it and at ragged shapes, holds the result
-   against its plain PyTorch version on the same inputs (K5 bitwise at
-   every row length 2-8192, K6 at every radius 1-7 and at 9, each
-   case on the C entry ``bilateral.route`` names), and times kernel,
+   against its plain PyTorch version on the same inputs (K1 bitwise
+   the shift-add and PR 11's kernel at every odd K 1-17, ragged and
+   unaligned; K2 exactly at 1-4096 bins, all keys in one bin; K5
+   bitwise at every row length 2-8192, K6 at every radius 1-7 and at
+   9; each case on the C entry its ``route`` names), and times kernel,
    plain version and (where one exists) the single PyTorch call that
-   computes the same function, with CUDA events; K6's first version
-   (``bilateral_f32``) is timed beside its register route.
+   computes the same function, with CUDA events; the first versions
+   of K1, K2 (at the main chunk and at sort's 2^24 keys, 64 bins) and
+   K6 are timed beside their new routes.
 4. Hybrid phase: ``HybridExecutor()`` pairs the GPU (``accel``) with
    the CPU (``host``) in ``threads`` mode and runs conv (3600x3600,
    K=15), hist (2^26 keys, 256 bins), spmv (n=8192), bilateral
@@ -24,8 +27,8 @@
    forced split that puts work on the CPU, then sort's leaf sorter
    (``sort leaf``: the bitonic kernel over the keys in 1024-wide rows);
    checks every value against a reference, and checks that every
-   kernel on the path was launched, K5 and K6 through their register
-   routes (``MAIN_ENTRY``).
+   kernel on the path was launched, K1, K2, K5 and K6 through their
+   redesigned routes (``MAIN_ENTRY``).
 5. LM phase: kimi-k2 at its full width, cut to depth 2 (the dense first
    layer and one MoE layer, ~20 B parameters, ~40 GB of bf16 weights
    from seed 0), serves a batch of 4 prompts of 1024 tokens through
@@ -95,12 +98,15 @@ SOURCE = {
 LM_ENTRY = {"flash_attention": ("flash_attention_wgmma_bf16",
                                 "flash_attention_fma_bf16"),
             "gmm": ("gmm_wgmma_bf16", "gmm_fma_bf16")}
-# the C entry points the work-shared path must launch for K5 and K6: the
-# register-route kernels, never K6's first version
-MAIN_ENTRY = {"sort_bitonic": ("sort_rows_reg_f32", None),
+# the C entry points the work-shared path must launch for K1, K2, K5 and
+# K6: the redesigned kernels, never the first versions of K1, K2 and K6
+MAIN_ENTRY = {"conv2d": ("conv2d_reg_f32", "conv2d_f32"),
+              "hist": ("hist_priv_i32", "hist_i32"),
+              "sort_bitonic": ("sort_rows_reg_f32", None),
               "bilateral": ("bilateral_reg_f32", "bilateral_f32")}
 # the kernels whose ptxas report must show no spill to local memory
-NO_SPILL = ("sort_rows_reg_kernel", "bilateral_reg_kernel")
+NO_SPILL = ("conv2d_reg_kernel", "hist_priv_kernel", "sort_rows_reg_kernel",
+            "bilateral_reg_kernel")
 
 CONV_SIZE, CONV_K = 3600, 15
 HIST_N, HIST_BINS = 1 << 26, 256
@@ -132,13 +138,14 @@ def time_ms(torch, fn, flush, iters: int = 15, warm: int = 3) -> float:
     """Median CUDA-event time of one call, on the device.  Before each
     call a read of a buffer larger than the 50 MB L2 evicts the inputs
     (the main path reads every input cold; a read leaves no dirty lines
-    to write back inside the timed call), then the GPU spins ~0.1 ms so
+    to write back inside the timed call), then the GPU spins ~0.5 ms so
     that the host has enqueued the call before the start event fires:
-    the wrapper's host-side cost stays outside the events."""
+    the wrapper's host-side cost stays outside the events, also on a
+    busy host (a ~0.1 ms spin let one median take in the host's time)."""
     times = []
     for i in range(warm + iters):
         flush.max()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(1_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -225,8 +232,10 @@ def kernel_phase(torch, np, dev, flush):
         route as bilateral_route)
     from repro_torch.kernels.conv2d.conv2d import (conv2d_cuda,
                                                    conv2d_shift_add)
+    from repro_torch.kernels.conv2d.conv2d import route as conv2d_route
     from repro_torch.kernels.conv2d.ref import conv2d_ref
     from repro_torch.kernels.hist.hist import hist_cuda
+    from repro_torch.kernels.hist.hist import route as hist_route
     from repro_torch.kernels.hist.ref import hist_ref
     from repro_torch.kernels.spmv import ops as spmv_ops
     from repro_torch.kernels.spmv.ref import spmv_ell_ref
@@ -245,56 +254,155 @@ def kernel_phase(torch, np, dev, flush):
     def row(*args):
         rows.append(kernel_row(*args))
 
-    # K1 conv2d: the main path's chunk (225 rows + 14 halo rows of the
-    # 3600-wide image, K=15), then ragged shapes (odd H/W, K 3 and 15)
-    for H, W, K in [(37, 101, 3), (50, 64, 15), (129, 77, 15), (1, 5, 3),
-                    (CONV_SIZE, CONV_SIZE, CONV_K)]:
-        img = torch.tensor(rng.standard_normal((H, W)).astype(np.float32),
-                           device=dev)
-        w = torch.tensor(rng.standard_normal((K, K)).astype(np.float32),
-                         device=dev)
+    # K1 conv2d: ragged shapes at every odd K 1-15 (the register route)
+    # and at 17 (the first version), an unaligned row slice, then the
+    # main path's chunk (225 rows + 14 halo rows of the 3600-wide image,
+    # K=15).  Bitwise the plain shift-add and PR 11's kernel; F.conv2d
+    # (TF32 off) within 2e-4.
+    def conv_first(img, w):
+        out = torch.empty_like(img)
+        common.launch("conv2d", "conv2d_f32", dev, img.data_ptr(),
+                      w.data_ptr(), out.data_ptr(), img.shape[0],
+                      img.shape[1], w.shape[0])
+        return out
+
+    def conv_case(img, w, what):
+        entry = conv2d_route(w.shape[0])
+        common.reset_launches()
         out = conv2d_cuda(img, w)
-        check(torch, "conv2d", out, conv2d_shift_add(img, w),
-              f"{H}x{W} K={K}")
-        check(torch, "conv2d", out, conv2d_ref(img, w),
-              f"{H}x{W} K={K} against F.conv2d")
+        if common.entry_counts()[entry] != 1:
+            raise AssertionError(f"conv2d {what}: not launched through "
+                                 f"{entry}")
+        for plain, label in ((conv2d_shift_add(img, w), "the shift-add"),
+                             (conv_first(img, w), "conv2d_f32")):
+            if not torch.equal(out, plain):
+                raise AssertionError(
+                    f"conv2d {what}: not bitwise {label}, max diff "
+                    f"{(out - plain).abs().max().item()}")
+        err = check(torch, "conv2d", out, conv2d_ref(img, w),
+                    f"{what} against F.conv2d")
+        print(f"kernel conv2d {what}: entry={entry} bitwise the shift-add "
+              f"and conv2d_f32; F.conv2d max_abs_err={err!r}", flush=True)
+        return out
+
+    def randn(*shape):
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=dev)
+
+    for K in range(1, 18, 2):
+        for H, W in [(37, 101), (20, 130), (1, 5)]:
+            conv_case(randn(H, W), randn(K, K), f"{H}x{W} K={K}")
+    for H, W, K in [(50, 64, 15), (129, 77, 15)]:
+        conv_case(randn(H, W), randn(K, K), f"{H}x{W} K={K}")
+    # the whole image in one call: the register route's steady state
+    img, w = randn(CONV_SIZE, CONV_SIZE), randn(CONV_K, CONV_K)
+    conv_case(img, w, f"{CONV_SIZE}x{CONV_SIZE} K={CONV_K}")
+    ms = time_ms(torch, lambda: conv2d_cuda(img, w), flush)
+    rate = 2.0 * CONV_SIZE ** 2 * CONV_K ** 2 / (ms * 1e-3)
+    print(f"kernel conv2d whole image {CONV_SIZE}x{CONV_SIZE} K={CONV_K}: "
+          f"ms={ms:.4f} ({rate / 1e12:.1f} TFLOP/s, "
+          f"{rate / PEAK_F32_FLOPS:.2f} of the f32 peak)", flush=True)
+    big = randn(43, 101)
+    sl = big[3:40]                       # 3 * 101 floats in: not aligned
+    assert sl.data_ptr() % 16
+    conv_case(sl, randn(CONV_K, CONV_K), "row slice [3:40] of 43x101 K=15")
+    flat = randn(1 + 30 * 128)
+    conv_case(flat[1:].view(30, 128), randn(7, 7),
+              "30x128 K=7 one float into its storage")
     H = CONV_SIZE // 16 + CONV_K - 1
-    img = torch.tensor(rng.standard_normal((H, CONV_SIZE)).astype(
-        np.float32), device=dev)
-    w = torch.tensor(rng.standard_normal((CONV_K, CONV_K)).astype(
-        np.float32), device=dev)
-    err = check(torch, "conv2d", conv2d_cuda(img, w),
-                conv2d_shift_add(img, w), "main path chunk")
-    check(torch, "conv2d", conv2d_cuda(img, w), conv2d_ref(img, w),
-          "main path chunk against F.conv2d")
-    row("conv2d", err, time_ms(torch, lambda: conv2d_cuda(img, w), flush),
+    img, w = randn(H, CONV_SIZE), randn(CONV_K, CONV_K)
+    common.reset_launches()
+    out = conv2d_cuda(img, w)
+    check_entry("kernel conv2d main path chunk", "conv2d",
+                common.launch_counts(), common.entry_counts())
+    conv_case(img, w, "main path chunk")
+    row("conv2d", 0.0, time_ms(torch, lambda: conv2d_cuda(img, w), flush),
         time_ms(torch, lambda: conv2d_shift_add(img, w), flush, iters=10),
         2.0 * H * CONV_SIZE * CONV_K ** 2,
         4.0 * (2 * H * CONV_SIZE + CONV_K ** 2),
         time_ms(torch, lambda: conv2d_ref(img, w), flush),
-        f"{H}x{CONV_SIZE} K={CONV_K}")
+        f"{H}x{CONV_SIZE} K={CONV_K}", PEAK_F32_FLOPS,
+        conv2d_route(CONV_K))
+    # PR 11's kernel (still the route past K = 15) at the same chunk,
+    # timed in the same run, in turns with the register route
+    first_ms = time_ms(torch, lambda: conv_first(img, w), flush)
+    again_ms = time_ms(torch, lambda: conv2d_cuda(img, w), flush)
+    print(f"kernel conv2d first version (conv2d_f32) {H}x{CONV_SIZE} "
+          f"K={CONV_K}: ms={first_ms:.4f} (register route again: "
+          f"{again_ms:.4f})", flush=True)
 
     # K2 hist: ragged N, a slice off a 16-byte boundary, keys out of
-    # range (ignored), then the main path's chunk (4 of 64 units of 2^26)
+    # range on both sides (ignored), all keys in one bin, 64 bins and the
+    # route's boundary (1816 bins, then 1817 on the first version), then
+    # the main path's chunk (4 of 64 units of 2^26) and sort's binning
+    # shape (2^24 keys, 64 bins).  Exact against hist_ref.
+    def hist_first(x, bins):
+        out = torch.zeros(bins, dtype=torch.int32, device=dev)
+        common.launch("hist", "hist_i32", dev, x.data_ptr(), x.numel(),
+                      bins, 4 * torch.cuda.get_device_properties(
+                          dev).multi_processor_count, out.data_ptr())
+        return out
+
+    def hist_case(x, bins, what):
+        entry = hist_route(bins)
+        common.reset_launches()
+        out = hist_cuda(x, bins)
+        if common.entry_counts()[entry] != 1:
+            raise AssertionError(f"hist {what}: not launched through "
+                                 f"{entry}")
+        check(torch, "hist", out, hist_ref(x, bins), what)
+        print(f"kernel hist {what}: entry={entry} exact", flush=True)
+
     for n, bins, lo, hi in [(1000, 16, 0, 16), (4099, 7, -2, 9),
                             ((1 << 20) + 3, 4096, 0, 4096),
-                            (5, 3, 0, 3)]:
+                            (5, 3, 0, 3), (2, 1, 0, 1),
+                            ((1 << 22) + 5, 64, -3, 67),
+                            (300_001, 256, -1, 257),
+                            (100_003, 1816, -5, 1821),
+                            (100_003, 1817, -5, 1822)]:
         x = torch.tensor(rng.integers(lo, hi, n, dtype=np.int32),
                          device=dev)
-        check(torch, "hist", hist_cuda(x, bins), hist_ref(x, bins),
-              f"N={n} bins={bins}")
-        check(torch, "hist", hist_cuda(x[1:], bins), hist_ref(x[1:], bins),
-              f"N={n - 1} bins={bins} (offset slice)")
+        hist_case(x, bins, f"N={n} bins={bins} keys [{lo}, {hi})")
+        hist_case(x[1:], bins, f"N={n - 1} bins={bins} (offset slice)")
+    for bins in (256, 1816):
+        x = torch.full((1 << 20,), bins - 1, dtype=torch.int32, device=dev)
+        hist_case(x, bins, f"N=2^20 bins={bins} all in bin {bins - 1}")
     n = HIST_N // 16
     x = torch.tensor(rng.integers(0, HIST_BINS, n, dtype=np.int32),
                      device=dev)
-    err = check(torch, "hist", hist_cuda(x, HIST_BINS),
-                hist_ref(x, HIST_BINS), "main path chunk")
-    row("hist", err, time_ms(torch, lambda: hist_cuda(x, HIST_BINS), flush),
+    common.reset_launches()
+    hist_cuda(x, HIST_BINS)
+    check_entry("kernel hist main path chunk", "hist",
+                common.launch_counts(), common.entry_counts())
+    hist_case(x, HIST_BINS, "main path chunk")
+    row("hist", 0.0, time_ms(torch, lambda: hist_cuda(x, HIST_BINS), flush),
         time_ms(torch, lambda: hist_ref(x, HIST_BINS), flush),
         1.0 * n, 4.0 * (n + HIST_BINS),
         time_ms(torch, lambda: torch.bincount(x, minlength=HIST_BINS),
-                flush), f"N={n} bins={HIST_BINS}")
+                flush), f"N={n} bins={HIST_BINS}", PEAK_F32_FLOPS,
+        hist_route(HIST_BINS))
+    # PR 11's kernel, its memset included as its wrapper has it, timed
+    # in the same run, in turns with the new route; then both at sort's
+    # binning shape
+    check(torch, "hist", hist_first(x, HIST_BINS), hist_ref(x, HIST_BINS),
+          "main path chunk, first version")
+    first_ms = time_ms(torch, lambda: hist_first(x, HIST_BINS), flush)
+    again_ms = time_ms(torch, lambda: hist_cuda(x, HIST_BINS), flush)
+    print(f"kernel hist first version (hist_i32 + memset) N={n} "
+          f"bins={HIST_BINS}: ms={first_ms:.4f} (hist_priv_i32 again: "
+          f"{again_ms:.4f})", flush=True)
+    xs = torch.tensor(rng.integers(0, SORT_BINS, SORT_N, dtype=np.int32),
+                      device=dev)
+    hist_case(xs, SORT_BINS, "sort's binning shape")
+    check(torch, "hist", hist_first(xs, SORT_BINS), hist_ref(xs, SORT_BINS),
+          "sort's binning shape, first version")
+    new_ms = time_ms(torch, lambda: hist_cuda(xs, SORT_BINS), flush)
+    first_ms = time_ms(torch, lambda: hist_first(xs, SORT_BINS), flush)
+    bound_ms = 4.0 * (SORT_N + SORT_BINS) / PEAK_BYTES * 1e3
+    print(f"kernel hist sort shape N={SORT_N} bins={SORT_BINS}: "
+          f"hist_priv_i32 ms={new_ms:.4f} hist_i32 + memset ms="
+          f"{first_ms:.4f} bound_ms={bound_ms:.4f} (bytes)", flush=True)
+    del xs
 
     # K3 spmv ELL: ragged R, then the main path's ELL tiles (the
     # nnz-sorted matrix in 512-row tiles; the first holds the heavy rows)
@@ -597,8 +705,8 @@ def hybrid_phase(torch, np):
         counts = common.launch_counts()
         print(f"hybrid {label}: launches={counts}")
         workload, kind = label.split()
-        if workload == "bilateral":
-            check_entry(f"hybrid {label}", "bilateral", counts,
+        if OWN_KERNEL[workload] in MAIN_ENTRY:
+            check_entry(f"hybrid {label}", OWN_KERNEL[workload], counts,
                         common.entry_counts())
         if kind in ("cold", "warm"):
             per_call[label] = counts

@@ -49,7 +49,9 @@ _P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # pointer too); every one returns cudaGetLastError() as an int
 _SIGNATURES = {
     "conv2d_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "conv2d_reg_f32": [_P, _P, _P, _I, _I, _I, _P],
     "hist_i32": [_P, _LL, _I, _I, _P, _P],
+    "hist_priv_i32": [_P, _LL, _I, _I, _P, _P, _ULL, _P],
     "spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "probe_add_one_f32": [_P, _P, _I, _P],
     "sort_rows_reg_f32": [_P, _P, _LL, _I, _P],

@@ -2,8 +2,17 @@
 and its CPU peer.
 
 ``conv2d_cuda`` launches ``csrc/conv2d.cu`` (K1, the port of
-``conv2d_pallas``): one block per 32x8 output tile, halo window and
-filter staged in shared memory, K^2 f32 FMAs per output.
+``conv2d_pallas``) on the C entry ``route`` picks:
+
+* odd K <= 15 (every filter the workloads use) -> ``conv2d_reg_f32``:
+  one block per 128x32 output tile, 4x4 outputs a thread in registers,
+  K a compile-time value, a rolling window of input-row segments;
+* any larger odd K -> ``conv2d_f32``, the first version: one block per
+  32x8 tile, one output a thread.
+
+Both stage the zero-padded halo window and the filter in shared memory
+and sum each output's K^2 f32 FMAs in the same order, so they agree
+bitwise.
 
 ``conv2d_shift_add`` is the same shifted multiply-add as plain PyTorch
 tensor ops over the whole image — the reference's ``xla_shift``
@@ -15,8 +24,42 @@ import torch
 
 from repro_torch.kernels.common import check_cuda, launch
 
-TILE_H, TILE_W = 8, 32
+TILE_H, TILE_W = 8, 32           # conv2d_f32's output tile
+REG_TILE_H, REG_TILE_W = 32, 128  # conv2d_reg_f32's
+REG_MAX_K = 15
+REG_ENTRY, TILED_ENTRY = "conv2d_reg_f32", "conv2d_f32"
 _SMEM_LIMIT = 48 * 1024          # static launch limit, no opt-in needed
+
+
+def route(K: int) -> str:
+    """The C entry point for an odd (K, K) filter: the register-blocked
+    kernel (K a template argument) for K <= 15, else the first
+    version."""
+    return REG_ENTRY if K <= REG_MAX_K else TILED_ENTRY
+
+
+def tile(entry: str):
+    """(rows, columns) of one block's output tile on ``entry``."""
+    if entry == REG_ENTRY:
+        return REG_TILE_H, REG_TILE_W
+    return TILE_H, TILE_W
+
+
+def window(entry: str, K: int):
+    """(rows, columns) of the halo window one block of ``entry`` stages:
+    the register route starts it on the aligned column col0 - 8."""
+    th, tw = tile(entry)
+    if entry == REG_ENTRY:
+        return th + K - 1, tw + 16
+    return th + K - 1, tw + K - 1
+
+
+def smem_bytes(entry: str, K: int) -> int:
+    """Shared memory of one block of ``entry``: the halo window and the
+    filter (rows padded to a multiple of 4 on the register route)."""
+    wh, ww = window(entry, K)
+    kp = (K + 3) // 4 * 4 if entry == REG_ENTRY else K
+    return 4 * (wh * ww + K * kp)
 
 
 def conv2d_cuda(img: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -30,14 +73,15 @@ def conv2d_cuda(img: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(w.shape)}")
     H, W = img.shape
     K = w.shape[0]
-    smem = 4 * ((TILE_W + K - 1) * (TILE_H + K - 1) + K * K)
+    entry = route(K)
+    smem = smem_bytes(entry, K)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"conv2d: K={K} needs {smem} B of shared memory")
-    if -(-H // TILE_H) > 65535:
+    if -(-H // tile(entry)[0]) > 65535:
         raise ValueError(f"conv2d: H={H} exceeds the grid's row limit")
     out = torch.empty((H, W), dtype=torch.float32, device=dev)
     if H and W:
-        launch("conv2d", "conv2d_f32", dev, img.data_ptr(), w.data_ptr(),
+        launch("conv2d", entry, dev, img.data_ptr(), w.data_ptr(),
                out.data_ptr(), H, W, K)
     return out
 

@@ -2,8 +2,9 @@
 peer on a CPU tensor.
 
 Autotuning is not ported yet: ``config=None`` is the only config, one
-fixed tiling of the kernel (32x8 output tiles) — the reference's
-behaviour with its search disabled.
+fixed tiling of the kernel (128x32 output tiles on the register route,
+which every K <= 15 takes) — the reference's behaviour with its search
+disabled.
 """
 from __future__ import annotations
 
@@ -12,12 +13,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core.cost_model import CostTerms
-from repro_torch.kernels.conv2d.conv2d import (TILE_H, TILE_W, conv2d_cuda,
-                                               conv2d_shift_add)
+from repro_torch.kernels.conv2d.conv2d import (REG_TILE_H, REG_TILE_W,
+                                               conv2d_cuda,
+                                               conv2d_shift_add, route,
+                                               tile, window)
 
 Config = dict
-DEFAULT_CONFIG: Config = {"impl": "cuda", "tile_h": TILE_H,
-                          "tile_w": TILE_W}
+DEFAULT_CONFIG: Config = {"impl": "cuda", "tile_h": REG_TILE_H,
+                          "tile_w": REG_TILE_W}
 
 
 def cost_terms(cfg: Config, H: int, W: int, K: int) -> CostTerms:
@@ -27,11 +30,13 @@ def cost_terms(cfg: Config, H: int, W: int, K: int) -> CostTerms:
         # K^2 shifted multiply-accumulates, each streaming the image
         return CostTerms(flops=flops, bytes=4.0 * 2 * H * W * K * K,
                          steps=K * K)
-    th = int(cfg.get("tile_h", TILE_H))
-    tw = int(cfg.get("tile_w", TILE_W))
+    # the route's tiling: each tile reads its halo window and the filter
+    entry = route(K)
+    th, tw = tile(entry)
     tiles = -(-H // th) * -(-W // tw)
-    halo = (th + K - 1) * (tw + K - 1)               # per-tile read
-    return CostTerms(flops=flops, bytes=4.0 * (tiles * halo + H * W),
+    wh, ww = window(entry, K)
+    return CostTerms(flops=flops,
+                     bytes=4.0 * (tiles * (wh * ww + K * K) + H * W),
                      steps=1)
 
 

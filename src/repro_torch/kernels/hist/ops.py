@@ -15,7 +15,7 @@ from repro_torch.core.cost_model import CostTerms
 from repro_torch.kernels.hist.hist import hist_bincount, hist_cuda
 
 Config = dict
-DEFAULT_CONFIG: Config = {"impl": "cuda", "threads": 256}
+DEFAULT_CONFIG: Config = {"impl": "cuda", "threads": 1024}
 
 
 def cost_terms(cfg: Config, n: int, n_bins: int) -> CostTerms:

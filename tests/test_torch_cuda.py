@@ -30,11 +30,13 @@ from repro_torch.kernels import common
 from repro_torch.kernels.bilateral import bilateral as bilateral_kernel
 from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                      bilateral_lut_torch)
+from repro_torch.kernels.conv2d import conv2d as conv_kernel
 from repro_torch.kernels.conv2d.conv2d import conv2d_cuda, conv2d_shift_add
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
+from repro_torch.kernels.hist import hist as hist_kernel
 from repro_torch.kernels.hist.hist import hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
 from repro_torch.kernels.sort_bitonic.sort_bitonic import (
@@ -173,6 +175,119 @@ def test_sort_bitonic_register_kernel_off_16_byte_alignment(gpu):
     out = sort_rows_cuda(rows)
     assert torch.equal(out.view(torch.int32),
                        bitonic_rows_torch(rows).view(torch.int32))
+
+
+def _conv_first_version(img, w):
+    """PR 11's kernel (``conv2d_f32``) on any K, launched directly."""
+    out = torch.empty_like(img)
+    common.launch("conv2d", "conv2d_f32", img.device, img.data_ptr(),
+                  w.data_ptr(), out.data_ptr(), img.shape[0], img.shape[1],
+                  w.shape[0])
+    return out
+
+
+def _conv_route_case(img, w):
+    """One call of the wrapper: the route's C entry launched once, and
+    the output bitwise the first version's and the plain shift-add's."""
+    entry = conv_kernel.route(w.shape[0])
+    common.reset_launches()
+    out = conv2d_cuda(img, w)
+    counts = common.entry_counts()
+    assert counts[entry] == 1 and sum(counts.values()) == 1
+    assert torch.equal(out, conv2d_shift_add(img, w))
+    assert torch.equal(out, _conv_first_version(img, w))
+    return entry
+
+
+# (H, W): W % 4 != 0, H under a block's 32 rows, 1x5, a tile edge
+CONV_ROUTE_SHAPES = [(37, 101), (20, 130), (1, 5), (70, 256)]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("K", [1, 3, 5, 7, 9, 11, 13, 15, 17])
+@pytest.mark.parametrize("H,W", CONV_ROUTE_SHAPES)
+def test_conv2d_routes_on_gpu(gpu, H, W, K):
+    """Every odd K up to 15 on the register route, 17 on the first
+    version: bitwise the first version and the plain shift-add."""
+    rng = np.random.default_rng(H * W + K)
+    img = _t(rng.standard_normal((H, W)).astype(np.float32)).to(gpu)
+    w = _t(rng.standard_normal((K, K)).astype(np.float32)).to(gpu)
+    entry = _conv_route_case(img, w)
+    assert entry == ("conv2d_reg_f32" if K <= 15 else "conv2d_f32")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("K", [3, 15])
+def test_conv2d_register_route_off_16_byte_alignment(gpu, K):
+    """A row slice of a W % 4 != 0 image (what ``conv_rows`` passes) and
+    a W % 4 == 0 view one float into its storage take the scalar
+    staging path, with no copy."""
+    rng = np.random.default_rng(K)
+    big = _t(rng.standard_normal((43, 101)).astype(np.float32)).to(gpu)
+    w = _t(rng.standard_normal((K, K)).astype(np.float32)).to(gpu)
+    rows = big[3:40]
+    assert rows.data_ptr() % 16
+    assert _conv_route_case(rows, w) == "conv2d_reg_f32"
+    flat = _t(rng.standard_normal(1 + 30 * 128).astype(np.float32)).to(gpu)
+    view = flat[1:].view(30, 128)
+    assert view.data_ptr() % 16
+    assert _conv_route_case(view, w) == "conv2d_reg_f32"
+
+
+@pytest.mark.needs_cuda
+def test_conv2d_register_route_at_the_main_chunk(gpu):
+    """239 x 3600, K = 15 (one of conv's 16 chunks with its halo)."""
+    rng = np.random.default_rng(239)
+    img = _t(rng.standard_normal((239, 3600)).astype(np.float32)).to(gpu)
+    w = _t(rng.standard_normal((15, 15)).astype(np.float32)).to(gpu)
+    assert _conv_route_case(img, w) == "conv2d_reg_f32"
+
+
+def _hist_route_case(x, bins):
+    entry = hist_kernel.route(bins)
+    common.reset_launches()
+    out = hist_cuda(x, bins)
+    counts = common.entry_counts()
+    assert counts[entry] == 1 and sum(counts.values()) == 1
+    assert torch.equal(out, hist_ref(x, bins))
+    return entry
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("bins", [1, 7, 64, 256, 1816, 1817])
+@pytest.mark.parametrize("n", [1000, (1 << 20) + 7])
+def test_hist_routes_on_gpu(gpu, n, bins):
+    """Up to 1816 bins on the bank-private route (1817 on the first
+    version): keys out of range on both sides, an offset slice, and all
+    keys in one bin, exact against hist_ref."""
+    x = _t(np.random.default_rng(n + bins).integers(
+        -3, bins + 3, n, dtype=np.int32)).to(gpu)
+    entry = _hist_route_case(x, bins)
+    assert entry == ("hist_priv_i32" if bins <= 1816 else "hist_i32")
+    assert _hist_route_case(x[1:], bins) == entry
+    same = torch.full((n,), bins - 1, dtype=torch.int32, device=gpu)
+    assert _hist_route_case(same, bins) == entry
+    assert _hist_route_case(same[3:], bins) == entry
+
+
+@pytest.mark.needs_cuda
+def test_hist_private_route_on_two_streams(gpu):
+    """Launches in flight on two streams keep apart (each stream has its
+    own launch numbers), and back-to-back launches on one stream, one
+    block or a full grid, each zero their own output."""
+    rng = np.random.default_rng(21)
+    xs = [_t(rng.integers(0, 256, n + i, dtype=np.int32)).to(gpu)
+          for i, n in enumerate([1 << 22, 1000, 1 << 22, 1 << 16, 77,
+                                 1 << 21, 5000, 1 << 22])]
+    streams = [torch.cuda.Stream(gpu) for _ in range(2)]
+    torch.cuda.synchronize(gpu)
+    outs = []
+    for i, x in enumerate(xs):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(hist_cuda(x, 256))
+    torch.cuda.synchronize(gpu)
+    for x, out in zip(xs, outs):
+        assert torch.equal(out, hist_ref(x, 256))
 
 
 # (H, W, radius): ragged H and W, a 1-row image, odd W; radius 1-7 on the

@@ -22,6 +22,7 @@ attention 2e-5 in f32 and 0.05 in bf16 (the online softmax against the
 unblocked one), gmm 2e-4 in f32 (sums in another order) and 1e-2 in
 bf16 (one rounding of the output to bf16, relative 2^-8).
 """
+import ctypes
 import os
 
 import jax.numpy as jnp
@@ -55,6 +56,7 @@ from repro_torch.kernels.bilateral import ops as bilateral_ops
 from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                      bilateral_lut_torch)
 from repro_torch.kernels.bilateral.ref import bilateral_ref
+from repro_torch.kernels.conv2d import conv2d as conv_kernel
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d.conv2d import conv2d_cuda, conv2d_shift_add
 from repro_torch.kernels.conv2d.ref import conv2d_ref
@@ -68,6 +70,7 @@ from repro_torch.kernels.gmm import gmm as gmm_kernel
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
 from repro_torch.kernels.gmm.ref import gmm_ref
+from repro_torch.kernels.hist import hist as hist_kernel
 from repro_torch.kernels.hist import ops as hist_ops
 from repro_torch.kernels.hist.hist import hist_bincount, hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
@@ -533,6 +536,84 @@ def test_new_k5_k6_entries_are_bound():
         assert name in entries and name in common._SIGNATURES
     assert sort_kernel.ENTRY == "sort_rows_reg_f32"
     assert "sort_rows_f32" not in entries
+
+
+# ------------------------------------------------ the K1 and K2 routes
+@pytest.mark.parametrize("K,entry", [
+    (1, "conv2d_reg_f32"), (3, "conv2d_reg_f32"), (5, "conv2d_reg_f32"),
+    (7, "conv2d_reg_f32"), (9, "conv2d_reg_f32"), (11, "conv2d_reg_f32"),
+    (13, "conv2d_reg_f32"), (15, "conv2d_reg_f32"), (17, "conv2d_f32"),
+    (19, "conv2d_f32"), (31, "conv2d_f32")])
+def test_conv2d_route(K, entry):
+    """Odd K up to 15 (one template instantiation each) take the
+    register-blocked kernel; larger K keep the first version."""
+    assert conv_kernel.route(K) == entry
+    assert entry in common.ENTRY_LAUNCHES
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 7, 9, 11, 13, 15])
+def test_conv2d_register_route_fits_shared_memory(K):
+    """The register route's block (a (32+K-1) x 144 halo window and the
+    filter, rows padded to 4) stays within 227 KB, and within the 48 KB
+    a launch gets without an opt-in, which its C entry never asks for."""
+    smem = conv_kernel.smem_bytes(conv_kernel.REG_ENTRY, K)
+    kp = (K + 3) // 4 * 4
+    assert smem == 4 * ((32 + K - 1) * 144 + K * kp)
+    assert smem <= 48 * 1024 <= 227 * 1024
+
+
+@pytest.mark.parametrize("bins,entry", [
+    (1, "hist_priv_i32"), (64, "hist_priv_i32"), (256, "hist_priv_i32"),
+    (384, "hist_priv_i32"), (385, "hist_priv_i32"),
+    (1816, "hist_priv_i32"), (1817, "hist_i32"), (4096, "hist_i32"),
+    (12288, "hist_i32")])
+def test_hist_route(bins, entry):
+    """Both main-path shapes (256 bins, 64 in sort's binning) and every
+    count whose 32 replicas fit a block take the bank-private kernel;
+    more bins keep the first version."""
+    assert hist_kernel.route(bins) == entry
+    assert entry in common.ENTRY_LAUNCHES
+
+
+def test_hist_private_route_fits_shared_memory_to_its_boundary():
+    """1816 bins x 32 int replicas is exactly the 227 KB (232,448 B) a
+    block may opt in to; one bin more would not fit, and the first
+    version holds 12288 bins in 48 KB."""
+    assert hist_kernel.PRIV_MAX_BINS == 1816
+    smem = hist_kernel.smem_bytes(hist_kernel.PRIV_ENTRY, 1816)
+    assert smem == 232448 == 227 * 1024
+    assert hist_kernel.smem_bytes(hist_kernel.PRIV_ENTRY, 1817) > 227 * 1024
+    assert hist_kernel.smem_bytes(hist_kernel.PRIV_ENTRY, 256) == 32 * 1024
+    assert hist_kernel.smem_bytes(hist_kernel.SHARED_ENTRY, 12288) \
+        == 48 * 1024
+
+
+@pytest.mark.parametrize("H,W,K,tiles,window", [
+    # the main chunk on the register route: 8 x 29 tiles of 32 x 128,
+    # each reading a (32+14) x 144 window and the 225 filter taps
+    (239, 3600, 15, 8 * 29, 46 * 144),
+    # K = 17 on the first version: 30 x 113 tiles of 8 x 32, windows of
+    # (8+16) x (32+16)
+    (239, 3600, 17, 30 * 113, 24 * 48)])
+def test_conv2d_cost_terms_by_hand(H, W, K, tiles, window):
+    ct = conv_ops.cost_terms(conv_ops.DEFAULT_CONFIG, H, W, K)
+    assert ct.flops == 2.0 * H * W * K * K
+    assert ct.bytes == 4.0 * (tiles * (window + K * K) + H * W)
+    assert ct.steps == 1
+    assert conv_ops.DEFAULT_CONFIG == {"impl": "cuda", "tile_h": 32,
+                                       "tile_w": 128}
+
+
+def test_new_k1_k2_entries_are_bound():
+    """The entry tally names both routes of K1 and of K2."""
+    entries = common.entry_counts()
+    for name in (conv_kernel.REG_ENTRY, conv_kernel.TILED_ENTRY,
+                 hist_kernel.PRIV_ENTRY, hist_kernel.SHARED_ENTRY):
+        assert name in entries and name in common._SIGNATURES
+    # hist_priv_i32 also takes its stream's launch-number buffer and this
+    # launch's number (an unsigned 64-bit value)
+    assert common._SIGNATURES["hist_priv_i32"][5:7] == [ctypes.c_void_p,
+                                                        ctypes.c_ulonglong]
 
 
 def test_launch_counts_reset_with_entry_counts():
