@@ -7,18 +7,25 @@
 2. Builds the hand-written CUDA kernels (``src/repro_torch/csrc/*.cu``)
    with ``nvcc`` for ``sm_90a`` into ``src/repro_torch/build/``, prints
    ptxas's registers and spills per kernel, and fails if a kernel of
-   K1's, K2's, K5's or K6's redesigned routes spills to local memory.
+   K1's, K2's, K3's, K5's or K6's redesigned routes spills to local
+   memory.
 3. Kernel phase: calls each kernel's wrapper on the card at the shapes
    the main path gives it and at ragged shapes, holds the result
    against its plain PyTorch version on the same inputs (K1 bitwise
    the shift-add and PR 11's kernel at every odd K 1-17, ragged and
-   unaligned; K2 exactly at 1-4096 bins, all keys in one bin; K5
-   bitwise at every row length 2-8192, K6 at every radius 1-7 and at
-   9; each case on the C entry its ``route`` names), and times kernel,
-   plain version and (where one exists) the single PyTorch call that
-   computes the same function, with CUDA events; the first versions
-   of K1, K2 (at the main chunk and at sort's 2^24 keys, 64 bins) and
-   K6 are timed beside their new routes.
+   unaligned; K2 exactly at 1-4096 bins, all keys in one bin; K3 at
+   every main-path tile, K on both sides of each threads-a-row
+   threshold, offset views, indices -1 and C, padding rows, R = 1, two
+   calls bitwise equal; K4 exact; K5 bitwise at every row length
+   2-8192, K6 at every radius 1-7 and at 9; each case on the C entry
+   its ``route`` names), and times kernel, plain version and (where one
+   exists) the single PyTorch call that computes the same function,
+   with CUDA events; the first versions of K1, K2 (at the main chunk
+   and at sort's 2^24 keys, 64 bins), K3 (at the heavy tile 512x3451
+   and the light tile 512x98), K4 and K6 are timed beside their new
+   routes, K3's instantiations (threads a row) at 512 rows and several
+   K, and an empty kernel as the launch floor (``kernel launch floor
+   ms=``).
 4. Hybrid phase: ``HybridExecutor()`` pairs the GPU (``accel``) with
    the CPU (``host``) in ``threads`` mode and runs conv (3600x3600,
    K=15), hist (2^26 keys, 256 bins), spmv (n=8192), bilateral
@@ -27,8 +34,9 @@
    forced split that puts work on the CPU, then sort's leaf sorter
    (``sort leaf``: the bitonic kernel over the keys in 1024-wide rows);
    checks every value against a reference, and checks that every
-   kernel on the path was launched, K1, K2, K5 and K6 through their
-   redesigned routes (``MAIN_ENTRY``).
+   kernel on the path was launched, K1, K2, K3, K5 and K6 through
+   their redesigned routes and K4 (the cold calls' profile
+   measurement) through its one-block entry (``MAIN_ENTRY``).
 5. LM phase: kimi-k2 at its full width, cut to depth 2 (the dense first
    layer and one MoE layer, ~20 B parameters, ~40 GB of bf16 weights
    from seed 0), serves a batch of 4 prompts of 1024 tokens through
@@ -98,15 +106,19 @@ SOURCE = {
 LM_ENTRY = {"flash_attention": ("flash_attention_wgmma_bf16",
                                 "flash_attention_fma_bf16"),
             "gmm": ("gmm_wgmma_bf16", "gmm_fma_bf16")}
-# the C entry points the work-shared path must launch for K1, K2, K5 and
-# K6: the redesigned kernels, never the first versions of K1, K2 and K6
+# the C entry points the work-shared path must launch for K1-K6 (K4 in
+# the cold calls' profile measurement): the redesigned kernels, never the
+# first versions of K1-K4 and K6
 MAIN_ENTRY = {"conv2d": ("conv2d_reg_f32", "conv2d_f32"),
               "hist": ("hist_priv_i32", "hist_i32"),
+              "spmv_ell": ("spmv_ell_seg_f32", "spmv_ell_f32"),
+              "probe_add_one": ("probe_add_one_vec_f32",
+                                "probe_add_one_f32"),
               "sort_bitonic": ("sort_rows_reg_f32", None),
               "bilateral": ("bilateral_reg_f32", "bilateral_f32")}
 # the kernels whose ptxas report must show no spill to local memory
 NO_SPILL = ("conv2d_reg_kernel", "hist_priv_kernel", "sort_rows_reg_kernel",
-            "bilateral_reg_kernel")
+            "bilateral_reg_kernel", "spmv_ell_seg_kernel")
 
 CONV_SIZE, CONV_K = 3600, 15
 HIST_N, HIST_BINS = 1 << 26, 256
@@ -222,8 +234,238 @@ def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape,
     return r
 
 
+def spmv_probe_rows(torch, np, dev, flush, rng):
+    """K3 and K4 on the card: every case on the C entry its route names,
+    held against the plain version; both timed beside their first
+    versions' entries, and the launch floor (an empty kernel) under the
+    same timer."""
+    from repro_torch.core.cost_model import (PROBE_ENTRY, launch_floor,
+                                             probe_add_one)
+    from repro_torch.kernels import common
+    from repro_torch.kernels.spmv import ops as spmv_ops
+    from repro_torch.kernels.spmv.ref import spmv_ell_ref
+    from repro_torch.kernels.spmv.spmv import (SEG_ENTRY, TPRS, WARP_ENTRY,
+                                               blocks, route, spmv_ell_cuda,
+                                               vector_loads)
+    from repro_torch.workloads import spmv as spmv_w
+
+    rows = []
+
+    # K3 spmv ELL.  An index outside [0, C) adds nothing: the plain
+    # version then masks those slots' products (spmv_ell_ref as is when
+    # every index is in range)
+    def plain(vals, idx, xv):
+        C = xv.shape[0]
+        inside = (idx >= 0) & (idx < C)
+        if bool(inside.all()):
+            return spmv_ell_ref(vals, idx, xv)
+        prod = vals * xv[idx.clamp(0, C - 1).long()]
+        return torch.where(inside, prod, torch.zeros_like(prod)).sum(1)
+
+    def exact(vals, idx, xv):
+        """The float64 product (the error both kernels are given)."""
+        C = xv.shape[0]
+        inside = (idx >= 0) & (idx < C)
+        prod = vals.double() * xv.double()[idx.clamp(0, C - 1).long()]
+        return torch.where(inside, prod, torch.zeros_like(prod)).sum(1)
+
+    def seg(vals, idx, xv, tpr):
+        """The new entry at a chosen threads-a-row (the route's sweep)."""
+        y = torch.empty(vals.shape[0], dtype=torch.float32, device=dev)
+        common.launch("spmv_ell", SEG_ENTRY, dev, vals.data_ptr(),
+                      idx.data_ptr(), xv.data_ptr(), y.data_ptr(),
+                      vals.shape[0], vals.shape[1], xv.shape[0], tpr,
+                      int(vector_loads(vals.data_ptr(), idx.data_ptr())))
+        return y
+
+    def first(vals, idx, xv):
+        """The first version, a warp a row."""
+        y = torch.empty(vals.shape[0], dtype=torch.float32, device=dev)
+        common.launch("spmv_ell", WARP_ENTRY, dev, vals.data_ptr(),
+                      idx.data_ptr(), xv.data_ptr(), y.data_ptr(),
+                      vals.shape[0], vals.shape[1], xv.shape[0])
+        return y
+
+    def case(vals, idx, xv, what):
+        R, K = vals.shape
+        entry, tpr = route(K)
+        vec = vector_loads(vals.data_ptr(), idx.data_ptr())
+        common.reset_launches()
+        out = spmv_ell_cuda(vals, idx, xv)
+        if common.entry_counts()[entry] != 1:
+            raise AssertionError(f"spmv_ell {what}: not launched through "
+                                 f"{entry}")
+        again = spmv_ell_cuda(vals, idx, xv)
+        if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"spmv_ell {what}: two calls differ")
+        err = check(torch, "spmv_ell", out, plain(vals, idx, xv), what)
+        print(f"kernel spmv_ell {what}: entry={entry} tpr={tpr} "
+              f"vector={vec} blocks={blocks(R, tpr)} max_abs_err={err!r}; "
+              f"two calls bitwise equal", flush=True)
+        return err
+
+    def randn(*shape):
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=dev)
+
+    def cols(R, K, C):
+        return torch.tensor(rng.integers(0, C, (R, K), dtype=np.int32),
+                            device=dev)
+
+    # ragged shapes, K on both sides of every threads-a-row threshold
+    for R, K, C in [(1000, 37, 777), (33, 4, 100), (100, 80, 80),
+                    (1, 3451, SPMV_N), (1, 5, 10), (33, 98, SPMV_N),
+                    (33, 3451, SPMV_N), (70, 512, 1000), (70, 513, 1000),
+                    (70, 1024, 1000), (70, 1025, 1000), (70, 2048, 1000),
+                    (70, 2049, 1000), (9, 1, 3), (5, 0, 4)]:
+        case(randn(R, K), cols(R, K, C), randn(C), f"R={R} K={K} C={C}")
+    # offset views: rows one row into their storage (the same phase),
+    # vals one float off idx's phase (the scalar instantiation)
+    for K in (98, 3451):
+        v, i, xv = randn(65, K), cols(65, K, SPMV_N), randn(SPMV_N)
+        case(v[1:], i[1:], xv, f"R=64 K={K} view [1:]")
+        flat = randn(1 + 64 * K)
+        vs = flat[1:].view(64, K)
+        assert not vector_loads(vs.data_ptr(), i[1:].data_ptr())
+        case(vs, i[1:], xv, f"R=64 K={K} vals off idx's 16-byte phase")
+    # indices -1 and C (contribute nothing), zero padding rows, x[0] = inf
+    v, i, xv = randn(100, 201), cols(100, 201, 500), randn(500)
+    i[::3, ::7] = -1
+    i[1::3, 3::5] = 500
+    case(v, i, xv, "R=100 K=201 indices -1 and C")
+    v[50:], i[50:] = 0.0, 0
+    case(v, i, xv, "R=100 K=201 rows 50-99 all padding")
+    xv[0] = float("inf")
+    out = spmv_ell_cuda(v, i, xv)
+    if not bool(torch.isnan(out[50:]).all()):
+        raise AssertionError("spmv_ell: 0 * x[0] = 0 * inf is not NaN in "
+                             "the padding rows, as in the reference")
+    print("kernel spmv_ell x[0]=inf: padding rows NaN, as vals * x[idx] "
+          "gives", flush=True)
+
+    # the main path's ELL tiles (the nnz-sorted matrix in 512-row tiles;
+    # the first holds the heavy rows)
+    A = spmv_w.make_matrix(SPMV_N, SPMV_DENSITY)
+    A_sorted = A[np.argsort(-(A != 0).sum(1))]
+    xv = torch.tensor(spmv_w.make_vector(SPMV_N), device=dev)
+    tiles = []
+    for t0 in range(0, SPMV_N, 512):
+        sub = A_sorted[t0:t0 + 512]
+        tiles.append(spmv_ops.prepare(
+            sub, k_threshold=int(max((sub != 0).sum(1).max(), 1)),
+            device=dev))
+    errs = [case(m.ell_vals, m.ell_idx, xv, f"main path tile {i} "
+                 f"{tuple(m.ell_vals.shape)}") for i, m in enumerate(tiles)]
+
+    # threads a row: each instantiation at the main path's K and around
+    # the route's thresholds (512 rows), the data behind route()
+    shapes = [(m.ell_vals, m.ell_idx, f"tile {i}")
+              for i, m in ((0, tiles[0]), (1, tiles[1]), (15, tiles[15]))]
+    for K in (256, 512, 1024, 2048):
+        shapes.append((randn(512, K), cols(512, K, SPMV_N), "synthetic"))
+    for vals, idx, label in shapes:
+        K = vals.shape[1]
+        ms = {}
+        for tpr in TPRS + TPRS[::-1]:
+            t = time_ms(torch, lambda: seg(vals, idx, xv, tpr), flush)
+            ms[tpr] = min(ms.get(tpr, t), t)
+        print(f"kernel spmv_ell tpr sweep ({label}) R=512 K={K}: "
+              + " ".join(f"tpr{t}={ms[t]:.4f}" for t in TPRS)
+              + f" route=tpr{route(K)[1]}", flush=True)
+
+    # the JSON rows: tile 0 (heavy) and tile 1 (the largest light tile),
+    # each against the float64 product beside the first version, and both
+    # kernels timed in turns (new, first, first, new)
+    for i in (0, 1):
+        m = tiles[i]
+        vals, idx = m.ell_vals, m.ell_idx
+        R, K = vals.shape
+        ref64 = exact(vals, idx, xv)
+        e_new = (spmv_ell_cuda(vals, idx, xv).double() - ref64).abs().max()
+        e_old = (first(vals, idx, xv).double() - ref64).abs().max()
+        nbytes = 8.0 * R * K + 4.0 * R + 4.0 * SPMV_N
+        t = [time_ms(torch, lambda: spmv_ell_cuda(vals, idx, xv), flush),
+             time_ms(torch, lambda: first(vals, idx, xv), flush),
+             time_ms(torch, lambda: first(vals, idx, xv), flush),
+             time_ms(torch, lambda: spmv_ell_cuda(vals, idx, xv), flush)]
+        new_ms, old_ms = min(t[0], t[3]), min(t[1], t[2])
+        coo = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(R, device=dev).repeat_interleave(K),
+                         idx.reshape(-1).long()]),
+            vals.reshape(-1), (R, SPMV_N), check_invariants=False).coalesce()
+        x2 = xv[:, None]
+        print(f"kernel spmv_ell tile {i} R={R} K={K}: {SEG_ENTRY} ms="
+              f"{t[0]:.4f}/{t[3]:.4f} ({nbytes / new_ms / 1e9:.3f} TB/s) "
+              f"{WARP_ENTRY} ms={t[1]:.4f}/{t[2]:.4f} "
+              f"({nbytes / old_ms / 1e9:.3f} TB/s); max_abs_err against "
+              f"the float64 product: {float(e_new)!r} (new), "
+              f"{float(e_old)!r} ({WARP_ENTRY})", flush=True)
+        r = kernel_row(
+            "spmv_ell", errs[i], new_ms,
+            time_ms(torch, lambda: spmv_ell_ref(vals, idx, xv), flush),
+            2.0 * R * K, nbytes,
+            time_ms(torch, lambda: torch.sparse.mm(coo, x2), flush),
+            f"tile {i}: R={R} K={K} C={SPMV_N}", PEAK_F32_FLOPS,
+            route(K)[0])
+        r.update(first_ms=old_ms, tpr=route(K)[1])
+        rows.append(r)
+
+    # K4 probe_add_one at the cost model's (128, 128) probe tile, a numel
+    # off a multiple of 4 and a view off 16-byte alignment: exact
+    def probe_case(t, what):
+        common.reset_launches()
+        out = probe_add_one(t)
+        if common.entry_counts()[PROBE_ENTRY] != 1:
+            raise AssertionError(f"probe_add_one {what}: not launched "
+                                 f"through {PROBE_ENTRY}")
+        check(torch, "probe_add_one", out, t + 1.0, what)
+        print(f"kernel probe_add_one {what}: entry={PROBE_ENTRY} exact",
+              flush=True)
+
+    def probe_first(t):
+        out = torch.empty_like(t)
+        common.launch("probe_add_one", "probe_add_one_f32", dev,
+                      t.data_ptr(), out.data_ptr(), t.numel())
+        return out
+
+    probe_case(randn(127, 129), "127x129")
+    probe_case(randn(1 + 4096)[1:], "4096 one float into its storage")
+    probe_case(randn(3), "3")
+    t = randn(128, 128)
+    probe_case(t, "128x128")
+    check(torch, "probe_add_one", probe_first(t), t + 1.0,
+          "128x128, first version")
+    floor = []
+    new = [time_ms(torch, lambda: probe_add_one(t), flush)]
+    old = [time_ms(torch, lambda: probe_first(t), flush)]
+    floor.append(time_ms(torch, lambda: launch_floor(dev), flush))
+    floor.append(time_ms(torch, lambda: launch_floor(dev), flush))
+    old.append(time_ms(torch, lambda: probe_first(t), flush))
+    new.append(time_ms(torch, lambda: probe_add_one(t), flush))
+    print(f"kernel launch floor ms={min(floor):.4f} (launch_floor_noop, one "
+          f"block of 32 threads, no work: {floor[0]:.4f}/{floor[1]:.4f})",
+          flush=True)
+    print(f"kernel probe_add_one 128x128: {PROBE_ENTRY} ms={new[0]:.4f}/"
+          f"{new[1]:.4f} probe_add_one_f32 ms={old[0]:.4f}/{old[1]:.4f} "
+          f"launch floor ms={min(floor):.4f}", flush=True)
+    # a 16x smaller tile: what the one block's time owes to its bytes
+    small = randn(32, 32)
+    print(f"kernel probe_add_one 32x32: {PROBE_ENTRY} ms="
+          f"{time_ms(torch, lambda: probe_add_one(small), flush):.4f} "
+          f"probe_add_one_f32 ms="
+          f"{time_ms(torch, lambda: probe_first(small), flush):.4f}",
+          flush=True)
+    r = kernel_row("probe_add_one", 0.0, min(new),
+                   time_ms(torch, lambda: t + 1.0, flush),
+                   1.0 * t.numel(), 8.0 * t.numel(),
+                   time_ms(torch, lambda: torch.add(t, 1.0), flush),
+                   "128x128", PEAK_F32_FLOPS, PROBE_ENTRY)
+    r.update(first_ms=min(old), launch_floor_ms=min(floor))
+    rows.append(r)
+    return rows
+
+
 def kernel_phase(torch, np, dev, flush):
-    from repro_torch.core.cost_model import probe_add_one
     from repro_torch.core.host_offload import bilateral_luts
     from repro_torch.kernels import common
     from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
@@ -237,16 +479,12 @@ def kernel_phase(torch, np, dev, flush):
     from repro_torch.kernels.hist.hist import hist_cuda
     from repro_torch.kernels.hist.hist import route as hist_route
     from repro_torch.kernels.hist.ref import hist_ref
-    from repro_torch.kernels.spmv import ops as spmv_ops
-    from repro_torch.kernels.spmv.ref import spmv_ell_ref
     from repro_torch.kernels.sort_bitonic.sort_bitonic import (
         bitonic_rows_torch, sort_rows_cuda)
     from repro_torch.kernels.sort_bitonic.sort_bitonic import (
         ENTRY as SORT_ENTRY)
-    from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
     from repro_torch.workloads import bilateral as bilateral_w
     from repro_torch.workloads import sort as sort_w
-    from repro_torch.workloads import spmv as spmv_w
 
     rng = np.random.default_rng(7)
     rows = []
@@ -404,58 +642,7 @@ def kernel_phase(torch, np, dev, flush):
           f"{first_ms:.4f} bound_ms={bound_ms:.4f} (bytes)", flush=True)
     del xs
 
-    # K3 spmv ELL: ragged R, then the main path's ELL tiles (the
-    # nnz-sorted matrix in 512-row tiles; the first holds the heavy rows)
-    for R, K, C in [(1000, 37, 777), (33, 4, 100), (100, 80, 80)]:
-        vals = torch.tensor(rng.standard_normal((R, K)).astype(np.float32),
-                            device=dev)
-        idx = torch.tensor(rng.integers(0, C, (R, K), dtype=np.int32),
-                           device=dev)
-        xv = torch.tensor(rng.standard_normal(C).astype(np.float32),
-                          device=dev)
-        check(torch, "spmv_ell", spmv_ell_cuda(vals, idx, xv),
-              spmv_ell_ref(vals, idx, xv), f"R={R} K={K} C={C}")
-    A = spmv_w.make_matrix(SPMV_N, SPMV_DENSITY)
-    A_sorted = A[np.argsort(-(A != 0).sum(1))]
-    xv = torch.tensor(spmv_w.make_vector(SPMV_N), device=dev)
-    tiles = []
-    for t0 in range(0, SPMV_N, 512):
-        sub = A_sorted[t0:t0 + 512]
-        tiles.append(spmv_ops.prepare(
-            sub, k_threshold=int(max((sub != 0).sum(1).max(), 1)),
-            device=dev))
-    for i, m in enumerate(tiles):
-        check(torch, "spmv_ell", spmv_ell_cuda(m.ell_vals, m.ell_idx, xv),
-              spmv_ell_ref(m.ell_vals, m.ell_idx, xv), f"tile {i}")
-    m = tiles[0]
-    R, K = m.ell_vals.shape
-    err = check(torch, "spmv_ell", spmv_ell_cuda(m.ell_vals, m.ell_idx, xv),
-                spmv_ell_ref(m.ell_vals, m.ell_idx, xv), "main path tile 0")
-    coo = torch.sparse_coo_tensor(
-        torch.stack([torch.arange(R, device=dev).repeat_interleave(K),
-                     m.ell_idx.reshape(-1).long()]),
-        m.ell_vals.reshape(-1), (R, SPMV_N),
-        check_invariants=False).coalesce()
-    x2 = xv[:, None]
-    row("spmv_ell", err,
-        time_ms(torch, lambda: spmv_ell_cuda(m.ell_vals, m.ell_idx, xv),
-                flush),
-        time_ms(torch, lambda: spmv_ell_ref(m.ell_vals, m.ell_idx, xv),
-                flush),
-        2.0 * R * K, 8.0 * R * K + 4.0 * R + 4.0 * SPMV_N,
-        time_ms(torch, lambda: torch.sparse.mm(coo, x2), flush),
-        f"R={R} K={K} C={SPMV_N}")
-
-    # K4 probe_add_one at the cost model's (128, 128) probe tile
-    t = torch.tensor(rng.standard_normal((128, 128)).astype(np.float32),
-                     device=dev)
-    err = check(torch, "probe_add_one", probe_add_one(t), t + 1.0,
-                "128x128")
-    row("probe_add_one", err,
-        time_ms(torch, lambda: probe_add_one(t), flush),
-        time_ms(torch, lambda: t + 1.0, flush),
-        1.0 * t.numel(), 8.0 * t.numel(),
-        time_ms(torch, lambda: torch.add(t, 1.0), flush), "128x128")
+    rows += spmv_probe_rows(torch, np, dev, flush, rng)
 
     # K5 sort_bitonic: ragged G and L (every row length from 2 to 8192,
     # G off the rows a block takes) with +inf padding, -inf, duplicates
@@ -615,7 +802,8 @@ def profiled(torch, label, fn):
     hybrid_time: the union of the device's kernel, copy and memset
     intervals, so that nothing is counted twice and set-up outside the
     windows (sort's binning) is left out.  Also prints the busy time of
-    the whole call and the device time by name inside the windows."""
+    the whole call, the device time by name inside the windows and
+    that of the workload's own kernel (``OWN_KERNEL``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -664,6 +852,11 @@ def profiled(torch, label, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     for name, (t, n) in top:
         print(f"hybrid {label}: device {t / 1e3:.3f} ms in {n}  {name[:90]}")
+    own = OWN_KERNEL[label.split()[0]]
+    mine = [v for name, v in by_name.items() if own in name]
+    print(f"hybrid {label}: {own} kernels: device "
+          f"{sum(t for t, _ in mine) / 1e3:.4f} ms in "
+          f"{sum(n for _, n in mine)}")
     return out
 
 
@@ -705,9 +898,14 @@ def hybrid_phase(torch, np):
         counts = common.launch_counts()
         print(f"hybrid {label}: launches={counts}")
         workload, kind = label.split()
+        entries = common.entry_counts()
         if OWN_KERNEL[workload] in MAIN_ENTRY:
             check_entry(f"hybrid {label}", OWN_KERNEL[workload], counts,
-                        common.entry_counts())
+                        entries)
+        # the cold calls' profile measurement: K4 on its one-block entry
+        first_probe = MAIN_ENTRY["probe_add_one"][1]
+        if counts["probe_add_one"] or entries[first_probe]:
+            check_entry(f"hybrid {label}", "probe_add_one", counts, entries)
         if kind in ("cold", "warm"):
             per_call[label] = counts
             if counts[OWN_KERNEL[workload]] <= 0:

@@ -38,7 +38,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.persist import JsonStore, default_calib_path
-from repro_torch.kernels.common import launch
+from repro_torch.kernels.common import kernel_lib, launch
 
 ENV_DISABLE = "REPRO_COST_MODEL"
 PROFILE_VERSION = 1
@@ -118,18 +118,32 @@ def static_profile(device) -> HardwareProfile:
 # ---------------------------------------------------------------------------
 # the dispatch probe kernel (K4)
 # ---------------------------------------------------------------------------
+PROBE_ENTRY = "probe_add_one_vec_f32"   # one block, float4 loads
+
+
 def probe_add_one(x: torch.Tensor) -> torch.Tensor:
     """``x + 1``: on a GPU tensor the hand-written ``probe_add_one``
-    kernel, on a CPU tensor the plain tensor op."""
+    kernel (one block), on a CPU tensor the plain tensor op."""
     if x.device.type == "cpu":
         return x + 1.0
     if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"probe_add_one: need a contiguous f32 CUDA or "
                          f"CPU tensor, got {x.dtype} on {x.device}")
     out = torch.empty_like(x)
-    launch("probe_add_one", "probe_add_one_f32", x.device, x.data_ptr(),
+    launch("probe_add_one", PROBE_ENTRY, x.device, x.data_ptr(),
            out.data_ptr(), x.numel())
     return out
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch the empty one-block kernel ``launch_floor_noop``: what a
+    launch costs with no device work, the floor under ``dispatch_s``.
+    For measurements only; not counted as a launch of any kernel."""
+    lib = kernel_lib()
+    err = lib.launch_floor_noop(torch.cuda.current_stream(device)
+                                .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch_floor_noop: CUDA error {err}")
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,10 @@ _SIGNATURES = {
     "hist_i32": [_P, _LL, _I, _I, _P, _P],
     "hist_priv_i32": [_P, _LL, _I, _I, _P, _P, _ULL, _P],
     "spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "spmv_ell_seg_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "probe_add_one_f32": [_P, _P, _I, _P],
+    "probe_add_one_vec_f32": [_P, _P, _I, _P],
+    "launch_floor_noop": [_P],
     "sort_rows_reg_f32": [_P, _P, _LL, _I, _P],
     "bilateral_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bilateral_reg_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

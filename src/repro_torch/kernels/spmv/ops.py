@@ -23,7 +23,7 @@ from repro_torch.kernels.spmv.ref import spmv_ell_ref
 from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
 
 Config = dict
-DEFAULT_CONFIG: Config = {"impl": "cuda", "rows_per_block": 8}
+DEFAULT_CONFIG: Config = {"impl": "cuda", "layout": "seg_rows"}
 
 
 def cost_terms(cfg: Config, R: int, K: int) -> CostTerms:

@@ -1,17 +1,55 @@
 """Row-binned spmv (paper §4.3): the hand-written CUDA ELL kernel.
 
 ``spmv_ell_cuda`` launches ``csrc/spmv_ell.cu`` (K3, the port of
-``spmv_ell_pallas``): one warp per row, coalesced reads of the
-row-major (R, K) values and indices, x gathered through L1/L2 — so the
-reference's "x must fit VMEM" limit does not apply.  Rows are sorted
-by nnz and split at a threshold exactly as in the reference; the
-sparse tail goes to the COO segment-sum in ``ops.py``.
+``spmv_ell_pallas``) on the C entry and threads a row that ``route``
+names: ``spmv_ell_seg_f32`` for every K, TPR threads a row (a template
+argument), 256/TPR rows a 256-thread block, every thread's 16-byte
+loads of vals and idx issued before any gather, each row split into a
+scalar head up to its first 16-byte boundary, a float4/int4 body and a
+scalar tail; x is gathered through L1/L2 — so the reference's "x must
+fit VMEM" limit does not apply.  When vals and idx lie in different
+16-byte phases (``vector_loads``) the entry runs its scalar
+instantiation.  The first version, ``spmv_ell_f32`` (a warp a row),
+stays in the library for comparison; no route takes it.
+
+Rows are sorted by nnz and split at a threshold exactly as in the
+reference; the sparse tail goes to the COO segment-sum in ``ops.py``.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels.common import check_cuda, launch
+
+SEG_ENTRY, WARP_ENTRY = "spmv_ell_seg_f32", "spmv_ell_f32"
+THREADS = 256                    # a block of spmv_ell_seg_f32
+TPRS = (32, 64, 128, 256)        # its instantiations: threads a row
+# (largest K, threads a row), from the timings at 512 x K in PERF.md;
+# past the last K, 256 threads a row
+_TPR_BY_K = ((512, 32), (1024, 64), (2048, 128))
+
+
+def route(K: int) -> Tuple[str, int]:
+    """(C entry, threads a row) for ELL rows of K slots."""
+    for k_max, tpr in _TPR_BY_K:
+        if K <= k_max:
+            return SEG_ENTRY, tpr
+    return SEG_ENTRY, TPRS[-1]
+
+
+def vector_loads(vals_ptr: int, idx_ptr: int) -> bool:
+    """Whether rows of vals and idx starting at these addresses share
+    their 16-byte boundaries, so the kernel can load both as float4 /
+    int4 after a common scalar head; else its scalar instantiation
+    runs."""
+    return (vals_ptr - idx_ptr) % 16 == 0
+
+
+def blocks(R: int, tpr: int) -> int:
+    """Blocks of one ``spmv_ell_seg_f32`` launch over R rows."""
+    return -(-R // (THREADS // tpr))
 
 
 def spmv_ell_cuda(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor
@@ -27,7 +65,8 @@ def spmv_ell_cuda(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor
     R, K = vals.shape
     y = torch.empty(R, dtype=torch.float32, device=dev)
     if R:
-        launch("spmv_ell", "spmv_ell_f32", dev, vals.data_ptr(),
-               idx.data_ptr(), x.data_ptr(), y.data_ptr(), R, K,
-               x.shape[0])
+        entry, tpr = route(K)
+        launch("spmv_ell", entry, dev, vals.data_ptr(), idx.data_ptr(),
+               x.data_ptr(), y.data_ptr(), R, K, x.shape[0], tpr,
+               int(vector_loads(vals.data_ptr(), idx.data_ptr())))
     return y

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import cost_model
 from repro_torch.core.cost_model import probe_add_one
 from repro_torch.core.host_offload import bilateral_luts
 from repro_torch.kernels import common
@@ -41,6 +42,7 @@ from repro_torch.kernels.hist.hist import hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
 from repro_torch.kernels.sort_bitonic.sort_bitonic import (
     bitonic_rows_torch, sort_rows_cuda)
+from repro_torch.kernels.spmv import spmv as spmv_kernel
 from repro_torch.kernels.spmv.ref import spmv_ell_ref
 from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
 from repro_torch.serve.plain_check import (check_tokens, greedy_with_gaps,
@@ -561,3 +563,130 @@ def test_run_hybrid_on_gpu_and_cpu(gpu, name):
     assert out.trace.group_units["accel"] > 0
     assert out.value.device == gpu
     torch.testing.assert_close(out.value.cpu(), ref, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------ the K3 and K4 routes
+def _masked_ell_ref(vals, idx, x):
+    """spmv_ell_ref with the products of indices outside [0, C) taken
+    as 0 (what the kernel adds for them); spmv_ell_ref itself when all
+    are in range."""
+    C = x.shape[0]
+    inside = (idx >= 0) & (idx < C)
+    if bool(inside.all()):
+        return spmv_ell_ref(vals, idx, x)
+    prod = vals * x[idx.clamp(0, C - 1).long()]
+    return torch.where(inside, prod, torch.zeros_like(prod)).sum(1)
+
+
+def _spmv_route_case(vals, idx, x):
+    """One call on the entry ``route`` names, within 2e-5 of the plain
+    version, and a second call bitwise equal to the first."""
+    entry, _ = spmv_kernel.route(vals.shape[1])
+    common.reset_launches()
+    out = spmv_ell_cuda(vals, idx, x)
+    counts = common.entry_counts()
+    assert counts[entry] == 1 and sum(counts.values()) == 1
+    torch.testing.assert_close(out, _masked_ell_ref(vals, idx, x),
+                               rtol=2e-5, atol=2e-5)
+    again = spmv_ell_cuda(vals, idx, x)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    return entry
+
+
+def _power_law_tile(R, K, C, seed):
+    """A (R, K) ELL tile like the main path's heavy one: row lengths
+    from K down to a few dozen, zero-padded (vals 0, index 0)."""
+    rng = np.random.default_rng(seed)
+    nnz = np.maximum((K / (1 + np.arange(R)) ** 0.7).astype(int), 30)
+    nnz[0] = K
+    vals = np.zeros((R, K), np.float32)
+    idx = np.zeros((R, K), np.int32)
+    for r, n in enumerate(nnz):
+        vals[r, :n] = rng.standard_normal(n)
+        idx[r, :n] = np.sort(rng.choice(C, n, replace=False))
+    return vals, idx
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("R,K", [
+    (512, 98), (512, 68), (33, 98), (33, 3451), (1, 3451), (1, 5),
+    (64, 512), (64, 513), (64, 1024), (64, 1025), (64, 2048), (64, 2049),
+    (9, 1), (5, 0)])
+def test_spmv_ell_segmented_route_on_gpu(gpu, R, K):
+    """The light tiles' shapes, R = 1 and 33, and K on both sides of
+    every threads-a-row threshold, on the segmented-row entry."""
+    rng = np.random.default_rng(R * 7 + K)
+    vals = _t(rng.standard_normal((R, K)).astype(np.float32)).to(gpu)
+    idx = _t(rng.integers(0, 8192, (R, K), dtype=np.int32)).to(gpu)
+    x = _t(rng.standard_normal(8192).astype(np.float32)).to(gpu)
+    assert _spmv_route_case(vals, idx, x) == "spmv_ell_seg_f32"
+
+
+@pytest.mark.needs_cuda
+def test_spmv_ell_segmented_route_at_a_power_law_tile(gpu):
+    """512 x 3451, rows from 3451 slots down to 30, the rest padding."""
+    vals, idx = _power_law_tile(512, 3451, 8192, 3451)
+    x = _t(np.random.default_rng(1).standard_normal(8192).astype(
+        np.float32)).to(gpu)
+    assert _spmv_route_case(_t(vals).to(gpu), _t(idx).to(gpu), x) \
+        == "spmv_ell_seg_f32"
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("K", [98, 3451])
+def test_spmv_ell_segmented_route_on_offset_views(gpu, K):
+    """Views one row into both tensors (16-byte loads after each row's
+    head) and vals one float off idx's phase (the scalar
+    instantiation), with no copy."""
+    rng = np.random.default_rng(K)
+    vals = _t(rng.standard_normal((65, K)).astype(np.float32)).to(gpu)
+    idx = _t(rng.integers(0, 8192, (65, K), dtype=np.int32)).to(gpu)
+    x = _t(rng.standard_normal(8192).astype(np.float32)).to(gpu)
+    assert spmv_kernel.vector_loads(vals[1:].data_ptr(), idx[1:].data_ptr())
+    _spmv_route_case(vals[1:], idx[1:], x)
+    flat = _t(rng.standard_normal(1 + 64 * K).astype(np.float32)).to(gpu)
+    off = flat[1:].view(64, K)
+    assert not spmv_kernel.vector_loads(off.data_ptr(), idx[1:].data_ptr())
+    _spmv_route_case(off, idx[1:], x)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("K", [98, 3451])
+def test_spmv_ell_segmented_route_out_of_range_and_padding(gpu, K):
+    """Indices -1 and C add nothing; all-zero padding rows give 0, and
+    NaN once x[0] is inf (0 * inf, as vals * x[idx] gives)."""
+    rng = np.random.default_rng(K + 1)
+    vals = _t(rng.standard_normal((100, K)).astype(np.float32)).to(gpu)
+    idx = _t(rng.integers(0, 500, (100, K), dtype=np.int32)).to(gpu)
+    x = _t(rng.standard_normal(500).astype(np.float32)).to(gpu)
+    idx[::3, ::7] = -1
+    idx[1::3, 3::5] = 500
+    _spmv_route_case(vals, idx, x)
+    vals[50:], idx[50:] = 0.0, 0
+    _spmv_route_case(vals, idx, x)
+    assert not bool(spmv_ell_cuda(vals, idx, x)[50:].any())
+    x[0] = float("inf")
+    assert bool(torch.isnan(spmv_ell_cuda(vals, idx, x)[50:]).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape,offset", [((128, 128), 0), ((127, 129), 0),
+                                          ((3,), 0), ((4096,), 1)])
+def test_probe_one_block_entry_on_gpu(gpu, shape, offset):
+    """The probe's one-block entry: exact, at the probe tile, a numel
+    off a multiple of 4 and a view off 16-byte alignment."""
+    n = int(np.prod(shape))
+    t = torch.randn(offset + n, device=gpu)[offset:].view(shape)
+    common.reset_launches()
+    out = probe_add_one(t)
+    counts = common.entry_counts()
+    assert counts["probe_add_one_vec_f32"] == 1 and sum(counts.values()) == 1
+    assert torch.equal(out, t + 1.0)
+
+
+@pytest.mark.needs_cuda
+def test_launch_floor_kernel_runs_uncounted(gpu):
+    common.reset_launches()
+    cost_model.launch_floor(gpu)
+    torch.cuda.synchronize()
+    assert not any(common.entry_counts().values())

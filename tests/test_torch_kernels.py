@@ -48,6 +48,7 @@ from repro.kernels.spmv.ref import spmv_ell_ref as jax_ell_ref
 from repro.kernels.sort_bitonic.sort_bitonic import sort_rows_pallas
 from repro.kernels.spmv.spmv import spmv_ell_pallas
 from repro.workloads import sort as ref_sort
+from repro_torch.core import cost_model
 from repro_torch.core.cost_model import probe_add_one
 from repro_torch.core.host_offload import bilateral_luts
 from repro_torch.kernels import common
@@ -80,6 +81,7 @@ from repro_torch.kernels.sort_bitonic import sort_bitonic as sort_kernel
 from repro_torch.kernels.sort_bitonic.sort_bitonic import (
     bitonic_rows_torch, sort_rows_cuda)
 from repro_torch.kernels.spmv import ops as spmv_ops
+from repro_torch.kernels.spmv import spmv as spmv_kernel
 from repro_torch.kernels.spmv.ref import spmv_ell_ref
 from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
 from repro_torch.workloads import sort as sort_w
@@ -154,6 +156,22 @@ def test_spmv_ell_matches_reference(R, C, K, impl):
                 spmv_ell_pallas(jv, ji, jx, row_tile=64, interpret=True)):
         np.testing.assert_allclose(out, np.asarray(ref), rtol=2e-5,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("impl", sorted(ELL_IMPLS))
+@pytest.mark.parametrize("K", [98, 3451])
+def test_spmv_ell_offset_view_matches_reference(K, impl):
+    """A view one row into its storage ([1:], as the kernel's per-row
+    alignment heads must take it) gives the reference's product of the
+    same rows."""
+    rng = np.random.default_rng(K)
+    vals = rng.standard_normal((9, K)).astype(np.float32)
+    idx = rng.integers(0, 200, (9, K), dtype=np.int32)
+    x = rng.standard_normal(200).astype(np.float32)
+    out = ELL_IMPLS[impl](_t(vals)[1:], _t(idx)[1:], _t(x)).numpy()
+    ref = jax_ell_ref(jnp.asarray(vals[1:]), jnp.asarray(idx[1:]),
+                      jnp.asarray(x))
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
 def test_spmv_coo_matches_reference():
@@ -536,6 +554,70 @@ def test_new_k5_k6_entries_are_bound():
         assert name in entries and name in common._SIGNATURES
     assert sort_kernel.ENTRY == "sort_rows_reg_f32"
     assert "sort_rows_f32" not in entries
+
+
+# ------------------------------------------------ the K3 and K4 routes
+@pytest.mark.parametrize("K,tpr", [
+    (0, 32), (1, 32), (4, 32), (68, 32), (98, 32), (512, 32), (513, 64),
+    (1024, 64), (1025, 128), (2048, 128), (2049, 256), (3451, 256),
+    (100_000, 256)])
+def test_spmv_route(K, tpr):
+    """Every K takes the segmented-row entry; threads a row grow with K:
+    the main path's light tiles (K = 68-98) take 32, its heavy tile
+    (K = 3451) the widest, 256."""
+    assert spmv_kernel.route(K) == ("spmv_ell_seg_f32", tpr)
+    assert tpr in spmv_kernel.TPRS and spmv_kernel.THREADS % tpr == 0
+
+
+@pytest.mark.parametrize("R,K,blocks", [(512, 3451, 512), (512, 98, 64),
+                                        (512, 68, 64), (1, 3451, 1),
+                                        (33, 98, 5), (512, 1024, 128)])
+def test_spmv_blocks_at_the_main_path_tiles(R, K, blocks):
+    """The heavy tile fills the card (512 blocks, ~3.9 an SM of 132);
+    the light tiles take 8 rows a block."""
+    assert spmv_kernel.blocks(R, spmv_kernel.route(K)[1]) == blocks
+
+
+@pytest.mark.parametrize("vals_ptr,idx_ptr,vector", [
+    (0, 0, True), (4096, 512, True), (4, 20, True), (12, 8188, True),
+    (4, 0, False), (0, 8, False), (4100, 4096, False),
+    # a row of K = 3451 from storage offsets 1 (vals) and 0 (idx)
+    (4 + 4 * 3451, 4 * 3451, False)])
+def test_spmv_vector_loads_needs_one_16_byte_phase(vals_ptr, idx_ptr,
+                                                   vector):
+    """16-byte loads of both streams need vals and idx in the same
+    16-byte phase (each row then has one head); otherwise the scalar
+    instantiation runs, decided from the two addresses alone."""
+    assert spmv_kernel.vector_loads(vals_ptr, idx_ptr) is vector
+
+
+def test_spmv_vector_loads_on_views():
+    """Views one row into both tensors keep a common phase; vals one
+    float off idx's does not."""
+    vals = torch.zeros(1 + 65 * 98)
+    idx = torch.zeros((65, 98), dtype=torch.int32)
+    v = vals[:65 * 98].view(65, 98)
+    assert spmv_kernel.vector_loads(v[1:].data_ptr(), idx[1:].data_ptr())
+    off = vals[1:].view(65, 98)
+    assert not spmv_kernel.vector_loads(off.data_ptr(), idx.data_ptr())
+
+
+def test_new_k3_k4_entries_are_bound():
+    """The entry tally names both K3 entries, both K4 entries and the
+    launch floor's empty kernel; the segmented-row entry also takes
+    threads a row and the vector flag, and the probe launches its
+    one-block entry."""
+    entries = common.entry_counts()
+    for name in ("spmv_ell_seg_f32", "spmv_ell_f32", "probe_add_one_f32",
+                 "probe_add_one_vec_f32", "launch_floor_noop"):
+        assert name in entries and name in common._SIGNATURES
+    assert common._SIGNATURES["spmv_ell_seg_f32"][7:9] == [ctypes.c_int,
+                                                           ctypes.c_int]
+    assert common._SIGNATURES["launch_floor_noop"] == [ctypes.c_void_p]
+    assert cost_model.PROBE_ENTRY == "probe_add_one_vec_f32"
+    assert (spmv_kernel.SEG_ENTRY, spmv_kernel.WARP_ENTRY) == (
+        "spmv_ell_seg_f32", "spmv_ell_f32")
+    assert spmv_ops.DEFAULT_CONFIG == {"impl": "cuda", "layout": "seg_rows"}
 
 
 # ------------------------------------------------ the K1 and K2 routes
