@@ -51,7 +51,25 @@
    then K7 and K8 against their plain versions at the main path's
    shapes (and ragged ones), timed beside
    ``F.scaled_dot_product_attention`` and ``torch.bmm``.
-6. Prints the kernels' numbers as one JSON line, the card line again,
+6. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
+   workloads at both of the paper's ratios (10 and 3.9) on the
+   simulated pair on the GPU (``force_simulated``), a cold pass (its
+   rows read the cost model's prior) and two warm passes (their rows
+   read the unit times measured before), with K1, K2, K3 and K6 on
+   their redesigned entries and K4 in the cold calibrations;
+   then Fig. 4 (``fig4_overlap``), the split sweep and Fig. 3 at the
+   reference's defaults, on the same pair.
+7. The other eight Table-1 workloads on the real pair: spgemm (n=4096,
+   density 0.02), raycast (2^20 rays, d=128), montecarlo (2^22
+   photons), listrank (2^22 nodes), concomp (2^17 vertices), lbm
+   (128^3, 4 steps), dither (1024x1024) and bundle (16 cameras, 4096
+   points), a cold and a warm call each and a profiled warm call for
+   the four that run through the executor's chunks; each value held
+   to its check (spgemm against A @ B in f64, raycast, montecarlo,
+   lbm and dither against the port's CPU values, listrank's ranks
+   walking the list, concomp against scipy's components, bundle's
+   error falling).
+8. Prints the kernels' numbers as one JSON line, the card line again,
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any mismatch raises and the script exits non-zero.  It also exits
@@ -63,6 +81,7 @@ except the kernel build under ``src/repro_torch/build/``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -126,6 +145,21 @@ SPMV_N, SPMV_DENSITY = 8192, 0.01
 SORT_N, SORT_BINS, SORT_TILE = 1 << 24, 64, 1024
 BILAT_SIZE, BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS = 3600, 3.0, 30.0, 7
 BILAT_BAND = 64       # rows held against the direct (exp) filter, per edge
+# the other eight Table-1 workloads on the real pair; concomp is kept
+# small: its host BFS and union-find merge are Python loops
+TABLE1_SIZES = {
+    "spgemm": dict(n=4096, density=0.02),
+    "raycast": dict(n_rays=1 << 20, d=128),
+    "montecarlo": dict(n_photons=1 << 22, unit=1 << 14),
+    "listrank": dict(n=1 << 22),
+    "concomp": dict(n=1 << 17, avg_deg=4.0),
+    "lbm": dict(d=128, n_steps=4),
+    "dither": dict(h=1024, w=1024),
+    "bundle": dict(n_cams=16, n_pts=4096),
+}
+# those that run through the executor's chunks (the rest time a task
+# graph, or lbm's plane split, themselves)
+CHUNKED = ("spgemm", "raycast", "montecarlo", "concomp")
 LM_ARCH, LM_LAYERS = "kimi-k2-1t-a32b", 2
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 16
 
@@ -771,16 +805,26 @@ def overlap_s(trace) -> float:
 
 
 def report(label, out) -> None:
-    r = out.result
-    split = {g: out.trace.group_units.get(g, 0) for g in r.busy_times}
-    print(f"hybrid {label}: mode={r.mode} split={split} "
+    """The call's split and the paper's metrics.  A call with no chunk
+    trace (the task-graph workloads, lbm's plane split) reports its
+    plan's units as the split, mode ``none``, and no makespan or
+    overlap."""
+    r, trace = out.result, out.trace
+    if trace is None:
+        split = dict(zip(r.busy_times, out.plan.units))
+        mode = makespan = overlap = "none"
+    else:
+        split = {g: trace.group_units.get(g, 0) for g in r.busy_times}
+        mode = trace.mode
+        makespan, overlap = repr(trace.makespan), repr(overlap_s(trace))
+    print(f"hybrid {label}: mode={mode} split={split} "
           f"plan={out.plan.units} chunks={r.n_chunks} steals={r.steals} "
           f"hybrid_time_s={r.hybrid_time!r} "
-          f"makespan_s={out.trace.makespan!r} single_s={r.single_times} "
+          f"makespan_s={makespan} single_s={r.single_times} "
           f"gain={r.gain!r} idle={r.idle_fracs} "
           f"resource_efficiency={r.resource_efficiency!r} "
           f"analytic_s={r.analytic_time!r} "
-          f"overlap_s={overlap_s(out.trace)!r}")
+          f"overlap_s={overlap}")
     if split.get("host", 0) == 0:
         print(f"hybrid {label}: finding: the host group ran 0 units")
 
@@ -803,7 +847,8 @@ def profiled(torch, label, fn):
     intervals, so that nothing is counted twice and set-up outside the
     windows (sort's binning) is left out.  Also prints the busy time of
     the whole call, the device time by name inside the windows and
-    that of the workload's own kernel (``OWN_KERNEL``)."""
+    that of the workload's own kernel (``OWN_KERNEL``), where it has
+    one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -817,16 +862,25 @@ def profiled(torch, label, fn):
     # and, where the main thread launched device work inside it (the
     # merge), the profiler's mirror of it on the device's timeline, an
     # annotation that is no device work and whose device type differs
-    # between torch versions
+    # between torch versions.  A call that runs the executor more than
+    # once (raycast's two phases) has one window per run: a mirror ends
+    # with its record (the timed code synchronises the device before it
+    # returns), so a span that starts after the window ends starts a
+    # new one
     windows = []
     for mark in marks:
-        spans = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.name == mark]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.name == mark)
         if not spans:
             raise AssertionError(f"{label}: no {mark} window in the "
                                  f"profile")
-        windows.append((min(lo for lo, _ in spans),
-                        max(hi for _, hi in spans)))
+        lo, hi = spans[0]
+        for s0, s1 in spans[1:]:
+            if s0 > hi:
+                windows.append((lo, hi))
+                lo = s0
+            hi = max(hi, s1)
+        windows.append((lo, hi))
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and e.name not in marks
               and not getattr(e, "is_user_annotation", False)]
@@ -852,11 +906,12 @@ def profiled(torch, label, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     for name, (t, n) in top:
         print(f"hybrid {label}: device {t / 1e3:.3f} ms in {n}  {name[:90]}")
-    own = OWN_KERNEL[label.split()[0]]
-    mine = [v for name, v in by_name.items() if own in name]
-    print(f"hybrid {label}: {own} kernels: device "
-          f"{sum(t for t, _ in mine) / 1e3:.4f} ms in "
-          f"{sum(n for _, n in mine)}")
+    own = OWN_KERNEL.get(label.split()[0])
+    if own is not None:
+        mine = [v for name, v in by_name.items() if own in name]
+        print(f"hybrid {label}: {own} kernels: device "
+              f"{sum(t for t, _ in mine) / 1e3:.4f} ms in "
+              f"{sum(n for _, n in mine)}")
     return out
 
 
@@ -1054,6 +1109,213 @@ def hybrid_phase(torch, np):
             raise AssertionError(f"{workload} cold: the calibration did "
                                  f"not launch probe_add_one")
     return per_call
+
+
+# ---------------------------------------------------------------------------
+# the other eight Table-1 workloads on the real pair
+# ---------------------------------------------------------------------------
+def _canonical(np, labels):
+    """Relabel each component by its least vertex."""
+    _, first, inv = np.unique(labels, return_index=True,
+                              return_inverse=True)
+    return first[inv]
+
+
+def table1_value(torch, np, name, out, refs) -> str:
+    """Hold one call's value to its check; ``refs`` keeps the CPU-side
+    references between a workload's calls.  Returns what was checked."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.workloads.{name}")
+    kw = TABLE1_SIZES[name]
+    value = out.value
+    if name == "spgemm":
+        if name not in refs:
+            A, B = mod.make_matrices(kw["n"], kw["density"])
+            refs[name] = A.astype(np.float64) @ B.astype(np.float64)
+        np.testing.assert_allclose(value.cpu().numpy(), refs[name],
+                                   rtol=2e-3, atol=2e-3)
+        return "against A @ B in float64 (2e-3)"
+    if name == "raycast":
+        if name not in refs:
+            vol, ro, rd = mod._placed(kw["n_rays"], kw["d"], "cpu")
+            refs[name] = mod.march(vol, ro, rd, mod.entry(ro, rd))
+        c = value.cpu()
+        torch.testing.assert_close(c, refs[name], rtol=1e-4, atol=1e-4)
+        if not (c.min() >= 0 and c.max() > 0):
+            raise AssertionError("raycast: no ray hit the volume")
+        return "against the port's CPU value on every ray (1e-4)"
+    if name == "montecarlo":
+        if name not in refs:
+            refs[name] = float(mod.simulate_photons(
+                mod._placed(kw["n_photons"], "cpu")))
+        if abs(value - refs[name]) > 1e-5 * abs(refs[name]):
+            raise AssertionError(f"montecarlo: {value!r} against the CPU's "
+                                 f"{refs[name]!r}")
+        return f"{value!r} against the CPU value (1e-5 relative)"
+    if name == "listrank":
+        succ, head = mod.make_list(kw["n"])
+        rank = value.cpu().numpy().astype(np.int64)
+        tail = succ == np.arange(kw["n"])
+        # the tail is 0, the head n-1, every other node one more than
+        # its successor: the ranks walk the list
+        if not (rank[head] == kw["n"] - 1 and (rank[tail] == 0).all()
+                and (rank[~tail] == rank[succ[~tail]] + 1).all()):
+            raise AssertionError("listrank: the ranks do not walk the list")
+        return "the ranks walk the list exactly"
+    if name == "concomp":
+        if name not in refs:
+            from scipy.sparse import coo_matrix
+            from scipy.sparse.csgraph import connected_components
+            n, edges = mod.make_graph(kw["n"], kw["avg_deg"])
+            adj = coo_matrix((np.ones(len(edges)), (edges[:, 0],
+                                                    edges[:, 1])),
+                             shape=(n, n))
+            refs[name] = _canonical(
+                np, connected_components(adj, directed=False)[1])
+        if not np.array_equal(_canonical(np, value), refs[name]):
+            raise AssertionError("concomp: not scipy's partition")
+        return (f"scipy's partition ({len(np.unique(refs[name]))} "
+                f"components)")
+    if name == "lbm":
+        f0 = mod.init_state(kw["d"])
+        if name not in refs:
+            one = mod.step_all(torch.from_numpy(f0))
+            cur = one
+            for _ in range(kw["n_steps"] - 1):
+                cur = mod.step_all(cur)
+            refs[name] = one, cur
+        one, cur = refs[name]
+        card = mod.step_all(torch.from_numpy(f0).to(value.device)).cpu()
+        torch.testing.assert_close(card, one, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(value.cpu(), cur, rtol=1e-5, atol=1e-5)
+        mass0 = float(f0.astype(np.float64).sum())
+        mass = float(value.double().sum())
+        if abs(mass - mass0) > 1e-4 * abs(mass0):
+            raise AssertionError(f"lbm: mass {mass!r} against {mass0!r}")
+        return ("one step_all on the card and the hybrid steps against "
+                "step_all on the CPU (1e-5), mass conserved (1e-4)")
+    if name == "dither":
+        if name not in refs:
+            refs[name] = mod.fsd_dither(torch.from_numpy(
+                mod.make_image(kw["h"], kw["w"])))
+        if not torch.equal(value.cpu(), refs[name]):
+            raise AssertionError("dither: differs from the CPU's")
+        return "equal to the port's CPU fsd_dither"
+    # bundle
+    if name not in refs:
+        cams, pts, obs = (torch.from_numpy(a) for a in mod.make_problem(
+            kw["n_cams"], kw["n_pts"]))
+        refs[name] = float(torch.sum(mod.residuals(cams, pts, obs) ** 2))
+    if not (np.isfinite(value) and value < refs[name]):
+        raise AssertionError(f"bundle: error {value!r} from {refs[name]!r}")
+    return f"reprojection error {refs[name]!r} -> {value!r}"
+
+
+def table1_phase(torch, np) -> None:
+    """The other eight Table-1 workloads on the real pair
+    (``HybridExecutor()``): a cold and a warm call each, and a profiled
+    warm call for those that run through the executor's chunks (mode
+    ``threads``); every value held to its check."""
+    import importlib
+
+    from repro_torch.core.hybrid_executor import HybridExecutor
+    from repro_torch.kernels import common
+    ex = HybridExecutor()
+    refs = {}
+    for name, kw in TABLE1_SIZES.items():
+        mod = importlib.import_module(f"repro_torch.workloads.{name}")
+        kinds = ("cold", "warm") + (("profiled",) if name in CHUNKED
+                                    else ())
+        for kind in kinds:
+            label = f"{name} {kind}"
+            common.reset_launches()
+            t0 = time.perf_counter()
+            if kind == "profiled":
+                out = profiled(torch, label,
+                               lambda: mod.run_hybrid(ex, **kw))
+            else:
+                out = mod.run_hybrid(ex, **kw)
+            wall = time.perf_counter() - t0
+            print(f"hybrid {label}: size={kw} launches="
+                  f"{common.launch_counts()}")
+            if name in CHUNKED and out.trace.mode != "threads":
+                raise AssertionError(f"{label}: mode {out.trace.mode}")
+            report(label, out)
+            what = table1_value(torch, np, name, out, refs)
+            print(f"hybrid {label}: wall_s={wall!r} value ok ({what})",
+                  flush=True)
+
+
+# ---------------------------------------------------------------------------
+# table2 and the figures, on the simulated pair on the card
+# ---------------------------------------------------------------------------
+def table2_phase(torch):
+    """The port's ``table2_hybrid.run()``: all 13 workloads at both
+    ratios on the simulated pair on cuda:0, a cold pass and then two
+    warm ones.  In the cold pass each row's single times and plan are
+    the cost model's prior after one update; in the warm passes they
+    are the unit times the pass before measured (the process's
+    calibration store), so their rows read the pair.  K1, K2, K3 and K6
+    must launch on their redesigned entries in every pass, and K4 in
+    the cold calibrations (the hardware profile is measured anew
+    first).  Returns the launch counts of the cold pass."""
+    from repro_torch.benchmarks import table2_hybrid
+    from repro_torch.core import cost_model
+    from repro_torch.core.hybrid_executor import HybridExecutor
+    from repro_torch.kernels import common
+    ex = HybridExecutor(force_simulated=True)
+    devs = [str(d) for g in ex.groups for d in g.devices]
+    print(f"table2: groups={devs} simulated={ex.simulated} "
+          f"backend={ex.backend}")
+    if devs != ["cuda:0", "cuda:0"] or not ex.simulated:
+        raise AssertionError(f"table2: expected the simulated pair on "
+                             f"cuda:0, got {devs}")
+    cost_model.reset_profiles()
+    cold = None
+    for label in ("cold", "warm 1", "warm 2"):
+        print(f"table2: pass={label}", flush=True)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        results = table2_hybrid.run()
+        wall = time.perf_counter() - t0
+        counts, entries = common.launch_counts(), common.entry_counts()
+        print(f"table2 {label}: launches={counts} wall_s={wall!r}")
+        names = ("conv2d", "hist", "spmv_ell", "bilateral")
+        if cold is None:
+            cold = counts
+            names += ("probe_add_one",)
+        for name in names:
+            check_entry(f"table2 {label}", name, counts, entries)
+        for pname, rs in results.items():
+            if len(rs) != 13 or not all(
+                    r.hybrid_time > 0 and math.isfinite(r.gain) for r in rs):
+                raise AssertionError(
+                    f"table2 {label} {pname}: {[r.row() for r in rs]}")
+            modes = {r.mode for r in rs if r.mode}
+            if modes != {"virtual"}:
+                raise AssertionError(f"table2 {label} {pname}: modes {modes}")
+    return cold
+
+
+def figures_phase(torch):
+    """Fig. 4, the split sweep and Fig. 3 at the reference's defaults,
+    on the simulated pair on cuda:0.  Returns the launch counts."""
+    from repro_torch.benchmarks import fig3_scaling, fig4_overlap, split_sweep
+    from repro_torch.kernels import common
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = fig4_overlap.run()
+    if out.result.mode != "virtual" or out.trace.group_units.get(
+            "accel", 0) <= 0:
+        raise AssertionError(f"fig4: {out.result.row()}")
+    split_sweep.run()
+    fig3_scaling.run()
+    counts, entries = common.launch_counts(), common.entry_counts()
+    print(f"figures: launches={counts} "
+          f"wall_s={time.perf_counter() - t0!r}")
+    for name in ("conv2d", "hist", "spmv_ell"):
+        check_entry("figures", name, counts, entries)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1376,13 +1638,18 @@ def main() -> None:
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
     rows += lm_kernel_rows(torch, dev, flush, lm_cfg, lm_params)
     del flush, lm_params
+    # after the LM, so that the inputs these phases keep on the card
+    # (montecarlo's 512 MB stream among them) stay out of its peak
+    per_call["table2"] = table2_phase(torch)
+    per_call["figures"] = figures_phase(torch)
+    table1_phase(torch, np)
     for r in rows:
         if r["name"] in LM_ENTRY:
             r["launches_per_prefill"] = lm_per["prefill"][r["name"]]
             r["launches_per_decode_step"] = \
                 lm_per["decode step"][r["name"]]
     # the main path: the cold and the warm call of each workload, sort's
-    # leaf sorter and the LM's generate call
+    # leaf sorter, table2, the figures and the LM's generate call
     for r in rows:
         r["launches_per_call"] = {label: c[r["name"]]
                                   for label, c in per_call.items()}

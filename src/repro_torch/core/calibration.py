@@ -168,8 +168,9 @@ class CalibrationCache:
     """Process-wide seconds/unit memory, keyed by
     (workload, group, slowdown).  The slowdown is part of the key so
     simulated platforms with different throughput ratios (Hybrid-High
-    vs Hybrid-Low) never share entries; ``backend`` (``torch:cuda`` or
-    ``torch:cpu``) names the persisted section.
+    vs Hybrid-Low) never share entries; ``backend`` (``torch:cuda``,
+    ``torch:cuda:simulated`` or ``torch:cpu``) names the persisted
+    section.
 
     Backed by a JSON store (section ``unit_times``, keyed per backend)
     with the tune cache's merge-on-write / atomic-replace / corrupt-file

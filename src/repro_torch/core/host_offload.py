@@ -11,8 +11,8 @@ serialization.
 
 numpy only: a copy of the part of the reference's module that the
 ported workloads use (the port imports nothing of the reference),
-bit-identical in what it computes.  The PRNG stream and the
-double-buffered prefetch come with the workloads that use them.
+bit-identical in what it computes.  The double-buffered prefetch comes
+with the training slice that uses it.
 """
 from __future__ import annotations
 
@@ -58,3 +58,9 @@ def bilateral_luts(sigma_s: float, sigma_r: float, radius: int,
     dr = np.arange(n_intensity, dtype=np.float32)
     rng = np.exp(-(dr ** 2) / (2 * sigma_r ** 2)).astype(np.float32)
     return spatial, rng
+
+
+def host_prng_stream(seed: int, n: int, dtype=np.float32) -> np.ndarray:
+    """Pseudorandom stream generated on the host (paper §4.7/§4.8: the
+    CPU generates randomness, the accelerator consumes it)."""
+    return np.random.default_rng(seed).random(n, dtype=dtype)

@@ -12,7 +12,8 @@ paper §5.4.3), cut into uniform chunks, and handed to the
   a stream of its own) and the groups compute concurrently; the
   reported makespan is the real wall-clock span of the joined threads.
 * **Simulated overlap** — on a single device (the CPU, when the caller
-  asks for it explicitly) the groups share the hardware, so
+  asks for it explicitly, or the GPU under ``force_simulated``) the
+  groups share the hardware, so
   concurrency is simulated with per-group virtual clocks: chunks
   interleave in virtual-time order, the slower group's chunk
   times are scaled by its ``slowdown`` factor, and the makespan is the
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -65,7 +66,8 @@ class DeviceGroup:
     slowdown: float = 1.0            # simulated relative slowdown (>=1)
 
 
-def detect_platform(simulated_ratio: float = 4.0, device=None
+def detect_platform(simulated_ratio: float = 4.0, device=None,
+                    force_simulated: bool = False
                     ) -> Tuple[List[DeviceGroup], bool]:
     """Build device groups.
 
@@ -74,7 +76,12 @@ def detect_platform(simulated_ratio: float = 4.0, device=None
     ``accel`` on the GPU, ``host`` on the CPU (real heterogeneity, the
     paper's pair).  An explicit CPU accel device -> simulate a hybrid
     pair on the CPU with the given throughput ratio (Hybrid-Low's
-    GPU:CPU sustained ratio 77.7/20 ~= 3.9 is the default)."""
+    GPU:CPU sustained ratio 77.7/20 ~= 3.9 is the default).
+
+    ``force_simulated`` always builds the simulated pair on the accel
+    device, the GPU included — benchmarks that sweep throughput ratios
+    (table2's Hybrid-High vs -Low) need the ratio honored on a host
+    whose real pair would otherwise replace it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -83,7 +90,7 @@ def detect_platform(simulated_ratio: float = 4.0, device=None
         accel = torch.device("cuda", 0)
     else:
         accel = torch.device(device)
-    if accel.type == "cpu":
+    if force_simulated or accel.type == "cpu":
         return ([DeviceGroup("accel", [accel], "accel", slowdown=1.0),
                  DeviceGroup("host", [accel], "host",
                              slowdown=simulated_ratio)], True)
@@ -104,13 +111,40 @@ def _assigned_units(units: Sequence[int], names: Sequence[str],
     return [per.get(n, 0) for n in names]
 
 
+@dataclass(frozen=True)
+class UnitPlan:
+    """The plan of a call with no chunk trace (a task graph, lbm's plane
+    split): the units each group was given, in group order."""
+    units: List[int]
+
+
 @dataclass
 class WorkSharedOutput:
     value: object
     result: HybridResult
-    plan: work_sharing.WorkPlan
+    plan: Union[work_sharing.WorkPlan, UnitPlan]
     simulated: bool
     trace: Optional[ExecutionTrace] = None
+
+
+def untraced_output(ex: "HybridExecutor", workload: str, hybrid_time: float,
+                    single: Dict[str, float], busy: Dict[str, float],
+                    value: object, units: Sequence[int]) -> WorkSharedOutput:
+    """The output of a call that times its own phases instead of running
+    the executor's chunks."""
+    return WorkSharedOutput(
+        value, HybridResult(workload, hybrid_time, single, busy),
+        UnitPlan([int(u) for u in units]), ex.simulated)
+
+
+def scheduled_output(ex: "HybridExecutor", workload: str, sched,
+                     single: Dict[str, float], value: object,
+                     units: Sequence[int]) -> WorkSharedOutput:
+    """The output of a task-graph call: the schedule's makespan is its
+    hybrid time and each device is busy for its non-idle share of it."""
+    busy = {d: (1 - f) * sched.makespan for d, f in sched.idle_frac.items()}
+    return untraced_output(ex, workload, sched.makespan, single, busy,
+                           value, units)
 
 
 class HybridExecutor:
@@ -121,13 +155,15 @@ class HybridExecutor:
     device before returning).
 
     With no ``groups``, ``detect_platform`` builds them: the GPU and
-    the CPU, or — when ``device="cpu"`` — the simulated pair."""
+    the CPU, or — when ``device="cpu"`` or ``force_simulated`` — the
+    simulated pair."""
 
     def __init__(self, groups: Optional[List[DeviceGroup]] = None,
                  simulated_ratio: float = 4.0, n_chunks: int = 16,
-                 device=None):
+                 device=None, force_simulated: bool = False):
         if groups is None:
-            groups, sim = detect_platform(simulated_ratio, device)
+            groups, sim = detect_platform(simulated_ratio, device,
+                                          force_simulated)
             self.simulated = sim
         else:
             devs = [str(d) for g in groups for d in g.devices]
@@ -136,10 +172,14 @@ class HybridExecutor:
         self.n_chunks = max(int(n_chunks), 1)
         self.tracker = ThroughputTracker([g.name for g in groups])
         # persisted entries are keyed by platform: a GPU pair never
-        # shares unit times with a CPU-simulated pair
+        # shares unit times with a CPU-simulated pair, nor with the
+        # simulated pair on the GPU, whose ``host`` group is the GPU (at
+        # a ratio of 1.0 its keys would otherwise be the real host's)
         on_gpu = any(torch.device(d).type == "cuda"
                      for g in groups for d in g.devices)
-        self.backend = "torch:cuda" if on_gpu else "torch:cpu"
+        self.backend = ("torch:cpu" if not on_gpu
+                        else "torch:cuda:simulated" if self.simulated
+                        else "torch:cuda")
         self.cache = get_calibration_cache(self.backend)
         self._cache_key: Optional[str] = None
         self._warm = False

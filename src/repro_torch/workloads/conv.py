@@ -80,3 +80,11 @@ def run_hybrid(ex: HybridExecutor, size: int = 512, ksize: int = 15,
     return ex.run_work_shared(
         "Conv", size, run_share, combine, comm_cost=comm,
         plan_override=plan_override, sequential=sequential)
+
+
+def run_hybrid_with_split(ex: HybridExecutor, units, size: int = 512,
+                          ksize: int = 15) -> WorkSharedOutput:
+    """Force an exact [accel, host] unit split (split-sweep benchmark).
+    Only ``run_hybrid``'s ``plan_override``, which also turns stealing
+    off; kept under the reference's name, which split_sweep calls."""
+    return run_hybrid(ex, size=size, ksize=ksize, plan_override=list(units))

@@ -92,8 +92,9 @@ def run_hybrid(ex: HybridExecutor, n: int = 1 << 18, n_bins: int = 64,
             out = torch.sort(chunk).values
             sync_device(chunk.device)
         else:
-            # host path: higher leaf threshold (paper §4.1), np.sort
-            out = torch.from_numpy(np.sort(chunk.numpy()))
+            # host path: higher leaf threshold (paper §4.1), np.sort on
+            # the host (the simulated pair on the GPU copies its keys out)
+            out = torch.from_numpy(np.sort(chunk.cpu().numpy()))
         return out
 
     def combine(outs):

@@ -690,3 +690,115 @@ def test_launch_floor_kernel_runs_uncounted(gpu):
     cost_model.launch_floor(gpu)
     torch.cuda.synchronize()
     assert not any(common.entry_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# force_simulated and the other eight Table-1 workloads on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.needs_cuda
+def test_force_simulated_pair_on_gpu(gpu):
+    """Both groups on the GPU, the host group at the ratio, mode
+    virtual; the value is the CPU reference's."""
+    from repro_torch.core.hybrid_executor import HybridExecutor
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+    from repro_torch.workloads import conv
+
+    ex = HybridExecutor(simulated_ratio=3.9, force_simulated=True)
+    assert ex.simulated and ex.backend == "torch:cuda:simulated"
+    assert [(str(g.devices[0]), g.slowdown) for g in ex.groups] == \
+        [("cuda:0", 1.0), ("cuda:0", 3.9)]
+    out = conv.run_hybrid(ex, size=128, ksize=5)
+    assert out.simulated and out.result.mode == "virtual"
+    img, w = conv.make_inputs(128, 5)
+    torch.testing.assert_close(out.value.cpu(), conv2d_ref(_t(img), _t(w)),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.needs_cuda
+def test_simulated_and_real_pairs_keep_apart_calibration_on_gpu(gpu):
+    """At a ratio of 1.0 the simulated pair's host group (the GPU) and
+    the real pair's (the CPU) share every key; neither reads the
+    other's entry."""
+    from repro_torch.core.hybrid_executor import HybridExecutor
+    from repro_torch.workloads import conv
+
+    sim = HybridExecutor(simulated_ratio=1.0, force_simulated=True)
+    conv.run_hybrid(sim, size=112, ksize=3)
+    key = ("Conv/112x3", "host", 1.0)
+    seen = sim.cache.get(*key)
+    real = HybridExecutor()
+    assert seen is not None and real.cache.get(*key) is None
+    out = conv.run_hybrid(real, size=112, ksize=3,
+                          plan_override=[80, 32])
+    assert out.result.mode == "threads"
+    assert real.cache.get(*key) is not None
+    assert sim.cache.get(*key) == seen
+
+
+TABLE1_CASES = {"spgemm": dict(n=256, density=0.03),
+                "raycast": dict(n_rays=1 << 12, d=32),
+                "montecarlo": dict(n_photons=1 << 16, unit=1 << 10),
+                "listrank": dict(n=1 << 14), "concomp": dict(n=1 << 12),
+                "lbm": dict(d=16, n_steps=3), "dither": dict(h=64, w=48),
+                "bundle": dict(n_cams=4, n_pts=256)}
+
+
+def _least_vertex(labels):
+    _, first, inv = np.unique(labels, return_index=True, return_inverse=True)
+    return first[inv]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("name", sorted(TABLE1_CASES))
+def test_table1_workload_on_gpu_matches_cpu(gpu, name):
+    """The real pair's value against the CPU pair's at the CPU tests'
+    tolerances (concomp: the same partition; lbm also conserves mass)."""
+    import importlib
+
+    from repro_torch.core.hybrid_executor import HybridExecutor
+
+    mod = importlib.import_module(f"repro_torch.workloads.{name}")
+    kw = TABLE1_CASES[name]
+    out = mod.run_hybrid(HybridExecutor(), **kw)
+    ref = mod.run_hybrid(HybridExecutor(device="cpu"), **kw).value
+    assert not out.simulated
+    if out.trace is not None:
+        assert out.trace.mode == "threads"
+    value = out.value
+    if name in ("spgemm", "raycast", "lbm"):
+        assert value.is_cuda
+        tol = 1e-5 if name == "lbm" else 1e-4
+        torch.testing.assert_close(value.cpu(), ref, rtol=tol, atol=tol)
+    elif name in ("listrank", "dither"):
+        assert value.is_cuda and torch.equal(value.cpu(), ref)
+    elif name == "concomp":
+        np.testing.assert_array_equal(_least_vertex(value),
+                                      _least_vertex(ref))
+    else:
+        rel = 1e-5 if name == "montecarlo" else 1e-3
+        assert value == pytest.approx(ref, rel=rel)
+    if name == "spgemm":
+        A, B = mod.make_matrices(**kw)
+        np.testing.assert_allclose(value.cpu().numpy(), A @ B, rtol=2e-3,
+                                   atol=2e-3)
+    if name == "lbm":
+        mass0 = float(mod.init_state(kw["d"]).astype(np.float64).sum())
+        assert float(value.double().sum()) == pytest.approx(mass0, rel=1e-4)
+
+
+@pytest.mark.needs_cuda
+def test_table2_runs_all_thirteen_on_the_simulated_pair_on_gpu(gpu,
+                                                              monkeypatch):
+    """Every workload on the simulated pair on the card (both groups on
+    cuda:0): sort's host lane must take its keys to the host for
+    np.sort, as the reference's does."""
+    from repro_torch.benchmarks import table2_hybrid
+    monkeypatch.setattr(table2_hybrid, "SIZES", dict(
+        sort=dict(n=1 << 12, n_bins=16), hist=dict(n=1 << 14, n_bins=64),
+        spmv=dict(n=256, density=0.02), bilateral=dict(size=48, radius=2),
+        conv=dict(size=64, ksize=5), **TABLE1_CASES))
+    results = table2_hybrid.run(csv=False)
+    for rs in results.values():
+        assert len(rs) == 13
+        assert all(r.hybrid_time > 0 for r in rs)
+        assert {r.mode for r in rs if r.mode} == {"virtual"}
