@@ -69,14 +69,31 @@
    lbm and dither against the port's CPU values, listrank's ranks
    walking the list, concomp against scipy's components, bundle's
    error falling).
-8. Prints the kernels' numbers as one JSON line, the card line again,
+8. Autotune phase (every phase before it runs with ``REPRO_AUTOTUNE=0``,
+   so each kernel stays on its route's C entry): the search on, with a
+   throwaway tune file under ``src/repro_torch/build/autotune/``; K1-K3
+   and K5-K8 tuned at the main path's shapes (conv's chunk, hist's
+   2^22 keys, spmv's heavy and light tiles, sort's rows, bilateral's
+   chunk, K7 at the LM's prefill, K8 at its decode step): one line per
+   candidate the search measured and the winner (a native winner is
+   printed as a finding: ``autotune <kernel> winner=... (not the CUDA
+   kernel)``), a second resolution that must measure nothing, then
+   every candidate of each space timed with CUDA events and held
+   against the plain version; conv and hist tuned on the host CPU at
+   the host lane's chunk shapes; one conv ``run_hybrid`` on the real
+   pair, cold (each lane searches its own winner) then warm; and the
+   port-side ``overlap_check``, ``cold_start`` (subprocesses that
+   import only ``repro_torch``) and ``fig5_tasks`` at the reference's
+   defaults.
+9. Prints the kernels' numbers as one JSON line, the card line again,
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any mismatch raises and the script exits non-zero.  It also exits
 non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The calibration store is kept in memory
 (``REPRO_CALIB_CACHE=0``): the run writes nothing outside the checkout
-except the kernel build under ``src/repro_torch/build/``.
+but for the kernel build and the autotune phase's throwaway stores,
+both under ``src/repro_torch/build/``.
 """
 from __future__ import annotations
 
@@ -1319,6 +1336,386 @@ def figures_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# autotune phase: the search on, on the card and on the host CPU
+# ---------------------------------------------------------------------------
+def _measured_config(fn):
+    """The config a candidate thunk runs: every ``tuned_config`` builds
+    its thunks as ``lambda: _<kernel>_cfg(..., cfg)``, so the config is
+    the closure's ``cfg`` cell."""
+    cells = dict(zip(fn.__code__.co_freevars,
+                     (c.cell_contents for c in fn.__closure__ or ())))
+    return cells.get("cfg")
+
+
+def _cfg_str(cfg) -> str:
+    return json.dumps(cfg, sort_keys=True)
+
+
+def tune(label, tuned, device, where=None):
+    """Resolve ``tuned()`` twice with the search on: the first searches
+    (one line per candidate measured: config and the search's host
+    time, min of 2 after a warmup, the device synchronised) and the
+    second must measure nothing.  ``where`` = (kernel, bucket) names
+    the tune entry, whose ``via`` shows a transfer.  Returns the
+    winner."""
+    from repro_torch.kernels import autotune as at
+
+    measured = []
+    default_timer = at._default_timer
+
+    def timer(fn):
+        t = default_timer(fn)
+        measured.append((_measured_config(fn), t))
+        return t
+
+    prev = at.set_timer(timer)
+    try:
+        t0 = time.perf_counter()
+        cfg = tuned()
+        t_search = time.perf_counter() - t0
+        n = len(measured)
+        again = tuned()
+    finally:
+        at.set_timer(prev)
+    for c, t in measured[:n]:
+        print(f"autotune {label} on {device}: measured {_cfg_str(c)} "
+              f"ms={t * 1e3:.4f}", flush=True)
+    if again != cfg or len(measured) != n:
+        raise AssertionError(f"autotune {label}: the second tuned_config "
+                             f"measured {len(measured) - n} candidates")
+    native = "" if cfg["impl"] == "cuda" or device == "cpu" else \
+        " (not the CUDA kernel)"
+    via = ""
+    if where is not None:
+        entry = at.tuned_entry(*where, device=device)
+        via = f" via={entry['via']}" if "via" in entry else ""
+    print(f"autotune {label} on {device}: winner={_cfg_str(cfg)}{native} "
+          f"search_s={t_search!r} measured={n}{via}; second tuned_config "
+          f"measured 0", flush=True)
+    if native:
+        print(f"autotune {label.split()[0]} winner={_cfg_str(cfg)} (not "
+              f"the CUDA kernel)", flush=True)
+    return cfg
+
+
+def autotune_phase(torch, np, dev):
+    """The search on (``REPRO_AUTOTUNE=1``, a throwaway tune file under
+    the build directory): K1-K3 and K5-K8 tuned at the main path's
+    shapes on the card (every candidate of each space then timed with
+    CUDA events and held against the plain version), conv and hist
+    tuned on the host CPU at the host lane's chunk shapes, one conv
+    ``run_hybrid`` on the real pair cold then warm, and the port-side
+    ``overlap_check``, ``cold_start`` and ``fig5_tasks`` at the
+    reference's defaults.  Returns the launch counts of the searches
+    and of the conv calls."""
+    import shutil
+
+    from repro_torch.benchmarks import cold_start, fig5_tasks, overlap_check
+    from repro_torch.core import cost_model
+    from repro_torch.core.calibration import (clear_calibration_cache,
+                                              measure)
+    from repro_torch.core.host_offload import bilateral_luts
+    from repro_torch.core.hybrid_executor import HybridExecutor
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import common
+    from repro_torch.kernels.bilateral import ops as bilateral_ops
+    from repro_torch.kernels.bilateral.bilateral import bilateral_lut_torch
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d.conv2d import conv2d_shift_add
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.kernels.gmm.gmm import gmm_torch
+    from repro_torch.kernels.hist import ops as hist_ops
+    from repro_torch.kernels.hist.ref import hist_ref
+    from repro_torch.kernels.sort_bitonic import ops as sort_ops
+    from repro_torch.kernels.sort_bitonic.sort_bitonic import (
+        bitonic_rows_torch)
+    from repro_torch.kernels.spmv import ops as spmv_ops
+    from repro_torch.kernels.spmv.ref import spmv_ell_ref
+    from repro_torch.workloads import bilateral as bilateral_w
+    from repro_torch.workloads import conv
+    from repro_torch.workloads import sort as sort_w
+    from repro_torch.workloads import spmv as spmv_w
+
+    t_phase = time.perf_counter()
+    root = os.path.join(common.BUILD_DIR, "autotune")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.environ["REPRO_AUTOTUNE"] = "1"
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(root, "tune.json")
+    at.reset_tune_cache()
+    print(f"autotune: REPRO_AUTOTUNE=1 REPRO_TUNE_CACHE="
+          f"{os.environ['REPRO_TUNE_CACHE']} top_k={at.top_k()} "
+          f"transfer={at.transfer_enabled()}", flush=True)
+    rng = np.random.default_rng(19)
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+
+    def on(a, device=dev):
+        return torch.tensor(a, device=device)
+
+    def randn(*shape, device=dev):
+        return on(rng.standard_normal(shape).astype(np.float32), device)
+
+    # the main path's shapes, with each kernel's plain version and the
+    # tolerance it is held to (TOL; the kernel phase holds K1 bitwise)
+    H = CONV_SIZE // 16 + CONV_K - 1
+    img, w = randn(H, CONV_SIZE), randn(CONV_K, CONV_K)
+    keys = on(rng.integers(0, HIST_BINS, HIST_N // 16, dtype=np.int32))
+    A = spmv_w.make_matrix(SPMV_N, SPMV_DENSITY)
+    A_sorted = A[np.argsort(-(A != 0).sum(1))]
+    xv = on(spmv_w.make_vector(SPMV_N))
+    tiles = []
+    for t0 in (0, 512):
+        sub = A_sorted[t0:t0 + 512]
+        tiles.append(spmv_ops.prepare(
+            sub, k_threshold=int(max((sub != 0).sum(1).max(), 1)),
+            device=dev))
+    del A, A_sorted
+    rows = on(sort_w.make_inputs(SORT_N)).reshape(-1, SORT_TILE)
+    Hb = BILAT_SIZE // 16 + 2 * BILAT_RADIUS
+    pix = on(bilateral_w.make_inputs(BILAT_SIZE)[:Hb])
+    sp, rl = (on(a) for a in bilateral_luts(BILAT_SIGMA_S, BILAT_SIGMA_R,
+                                            BILAT_RADIUS))
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    # K7 at the LM's prefill (kimi-k2: 64 query heads over 8 K/V heads,
+    # d=112, batch 4 x 1024, causal); K8 at its decode up projection
+    q = bf16(LM_BATCH, LM_PROMPT, 64, 112)
+    k, v = bf16(LM_BATCH, LM_PROMPT, 8, 112), bf16(LM_BATCH, LM_PROMPT, 8,
+                                                   112)
+    xe, we = bf16(384, LM_BATCH, 7168), bf16(384, 7168, 2048,
+                                            scale=7168 ** -0.5)
+
+    def attn_plain():
+        return flash_ops.flash_attention(q, k, v, use_kernel=False)
+
+    # (label, kernel, tuned(), call(cfg), plain, tol, candidates,
+    # (tune kernel, bucket))
+    cases = [
+        (f"conv2d {H}x{CONV_SIZE} K={CONV_K}", "conv2d",
+         lambda: conv_ops.tuned_config(img, w),
+         lambda c: conv_ops.conv2d(img, w, config=c),
+         conv2d_shift_add(img, w), TOL["conv2d"],
+         conv_ops.candidates(H, CONV_SIZE, CONV_K, dev),
+         ("conv2d", conv_ops.shape_bucket(H, CONV_SIZE, CONV_K))),
+        (f"hist N={keys.numel()} bins={HIST_BINS}", "hist",
+         lambda: hist_ops.tuned_config(keys, HIST_BINS),
+         lambda c: hist_ops.histogram(keys, HIST_BINS, config=c),
+         hist_ref(keys, HIST_BINS), 0,
+         hist_ops.candidates(keys.numel(), HIST_BINS, dev),
+         ("hist", hist_ops.shape_bucket(keys.numel(), HIST_BINS)))]
+    for i, m in enumerate(tiles):
+        R, K = m.ell_vals.shape
+        cases.append((
+            f"spmv tile {i} R={R} K={K}", "spmv_ell",
+            lambda m=m: spmv_ops.tuned_config(m.ell_vals, m.ell_idx, xv),
+            lambda c, m=m: spmv_ops.spmv_ell(m.ell_vals, m.ell_idx, xv,
+                                             config=c),
+            spmv_ell_ref(m.ell_vals, m.ell_idx, xv), TOL["spmv_ell"],
+            spmv_ops.candidates(R, K, dev),
+            ("spmv", spmv_ops.shape_bucket(R, K))))
+    cases += [
+        (f"sort_bitonic G={rows.shape[0]} L={SORT_TILE}", "sort_bitonic",
+         lambda: sort_ops.tuned_config(rows),
+         lambda c: sort_ops.sort_rows(rows, config=c),
+         bitonic_rows_torch(rows), 0,
+         sort_ops.candidates(rows.shape[0], SORT_TILE, dev),
+         ("sort_bitonic", sort_ops.shape_bucket(rows.shape[0], SORT_TILE))),
+        (f"bilateral {Hb}x{BILAT_SIZE} K={sp.shape[0]}", "bilateral",
+         lambda: bilateral_ops.tuned_config(pix, sp, rl),
+         lambda c: bilateral_ops.bilateral_filter(pix, sp, rl, config=c),
+         bilateral_lut_torch(pix, sp, rl), TOL["bilateral"],
+         bilateral_ops.candidates(Hb, BILAT_SIZE, sp.shape[0], dev),
+         ("bilateral", bilateral_ops.shape_bucket(Hb, BILAT_SIZE,
+                                                  sp.shape[0]))),
+        (f"flash_attention prefill B={LM_BATCH} T={LM_PROMPT} H=64/8 "
+         f"d=112 causal bf16", "flash_attention",
+         lambda: flash_ops.tuned_config(q, k, v),
+         lambda c: flash_ops.flash_attention(q, k, v, config=c),
+         attn_plain(), TOL["flash_attention"],
+         flash_ops.candidates(LM_PROMPT, LM_PROMPT, 112, True, dev,
+                              torch.bfloat16),
+         ("flash_attention", flash_ops.shape_bucket(
+             LM_BATCH * 64, LM_PROMPT, LM_PROMPT, 112, True))),
+        (f"gmm decode up E=384 C={LM_BATCH} D=7168 F=2048 bf16", "gmm",
+         lambda: gmm_ops.tuned_config(xe, we),
+         lambda c: gmm_ops.gmm(xe, we, config=c),
+         gmm_torch(xe, we), TOL["gmm"],
+         gmm_ops.candidates(384, LM_BATCH, 7168, 2048, dev,
+                            torch.bfloat16),
+         ("gmm", gmm_ops.shape_bucket(384, LM_BATCH, 7168, 2048))),
+    ]
+    torch.backends.cudnn.allow_tf32 = False
+
+    # the searches: the main path of this phase, its launches counted
+    t0 = time.perf_counter()
+    common.reset_launches()
+    winners = {label: tune(label, tuned, "cuda", where)
+               for label, _, tuned, _, _, _, _, where in cases}
+    search_counts = common.launch_counts()
+    print(f"autotune search: launches={search_counts} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # every candidate of each space, timed on the device and held
+    # against its plain version (uncounted); a CUDA candidate must
+    # launch exactly its entry
+    t0 = time.perf_counter()
+    for label, name, _, call, plain, tol, cands, _ in cases:
+        for cfg in cands:
+            common.reset_launches()
+            out = call(cfg)
+            counts, entries = common.launch_counts(), common.entry_counts()
+            if cfg["impl"] == "cuda":
+                entry = cfg.get("entry", "sort_rows_reg_f32")
+                if counts[name] != 1 or entries[entry] != 1:
+                    raise AssertionError(f"autotune {label} {cfg}: "
+                                         f"launched {entries}")
+            if tol == 0:
+                if not torch.equal(out, plain):
+                    raise AssertionError(f"autotune {label} {cfg}: not "
+                                         f"exactly the plain version")
+                err = 0.0
+            else:
+                torch.testing.assert_close(
+                    out.float(), plain.float(), rtol=tol, atol=tol,
+                    msg=lambda m: f"autotune {label} {cfg}: {m}")
+                err = (out.float() - plain.float()).abs().max().item()
+            ms = time_ms(torch, lambda: call(cfg), flush, iters=10)
+            mark = " <- winner" if cfg == {
+                k_: v_ for k_, v_ in winners[label].items()
+                if k_ in cfg} else ""
+            print(f"autotune {label} candidate {_cfg_str(cfg)}: "
+                  f"device_ms={ms:.4f} max_abs_err={err!r}{mark}",
+                  flush=True)
+    print(f"autotune candidates: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del cases, q, k, v, xe, we, rows
+    torch.cuda.empty_cache()
+
+    # the host CPU at the host lane's chunk shapes (conv: a chunk of the
+    # 3600-wide image with its halo rows; hist: one of 16 chunks)
+    t0 = time.perf_counter()
+    img_h, w_h = img.cpu(), w.cpu()
+    keys_h = keys.cpu()
+    tune(f"conv2d {H}x{CONV_SIZE} K={CONV_K}",
+         lambda: conv_ops.tuned_config(img_h, w_h), "cpu",
+         ("conv2d", conv_ops.shape_bucket(H, CONV_SIZE, CONV_K)))
+    tune(f"hist N={keys_h.numel()} bins={HIST_BINS}",
+         lambda: hist_ops.tuned_config(keys_h, HIST_BINS), "cpu",
+         ("hist", hist_ops.shape_bucket(keys_h.numel(), HIST_BINS)))
+    print(f"autotune host: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # one conv run_hybrid on the real pair with the search on, cold (a
+    # fresh tune file and calibration: each lane searches its own
+    # winner inside the call's set-up) then warm
+    t0 = time.perf_counter()
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(root, "hybrid.json")
+    at.reset_tune_cache()
+    clear_calibration_cache("torch:cuda")
+    cost_model.reset_profiles()
+    ex = HybridExecutor()
+    cimg, cw = conv.make_inputs(CONV_SIZE, CONV_K)
+    conv_ref = conv2d_ref(on(cimg), on(cw)).cpu()
+    rows_c = CONV_SIZE // ex.n_chunks + CONV_K - 1
+    bkt = conv_ops.shape_bucket(rows_c, CONV_SIZE, CONV_K)
+    per_call = {"autotune search": search_counts}
+    for label in ("cold", "warm"):
+        measured = []
+        default_timer = at._default_timer
+        prev = at.set_timer(lambda fn: measured.append(1)
+                            or default_timer(fn))
+        common.reset_launches()
+        try:
+            t1 = time.perf_counter()
+            out = conv.run_hybrid(ex, size=CONV_SIZE, ksize=CONV_K)
+            wall = time.perf_counter() - t1
+        finally:
+            at.set_timer(prev)
+        counts = common.launch_counts()
+        per_call[f"autotune conv {label}"] = counts
+        torch.testing.assert_close(out.value.cpu(), conv_ref,
+                                   rtol=TOL["conv2d"], atol=TOL["conv2d"],
+                                   msg=lambda m: f"autotune conv {label}: "
+                                                 f"{m}")
+        lanes = {g.name: at.tuned_entry("conv2d", bkt,
+                                        device=g.devices[0])["config"]
+                 for g in ex.groups}
+        print(f"hybrid autotune conv {label}: lane winners "
+              f"accel={_cfg_str(lanes['accel'])} "
+              f"host={_cfg_str(lanes['host'])} (bucket {bkt}); "
+              f"candidates measured={len(measured)} "
+              f"probes={ex.last_probe_runs} launches={counts}", flush=True)
+        report(f"autotune conv {label}", out)
+        print(f"hybrid autotune conv {label}: wall_s={wall!r} value ok "
+              f"(tol {TOL['conv2d']})", flush=True)
+        if label == "warm" and measured:
+            raise AssertionError("autotune conv warm: the search ran "
+                                 "again")
+    print(f"autotune hybrid: {time.perf_counter() - t0:.1f} s", flush=True)
+    del flush
+    torch.cuda.empty_cache()
+
+    # the port-side scripts at the reference's defaults
+    t0 = time.perf_counter()
+    overlap_check.run()
+    print(f"autotune overlap_check: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    cold = cold_start.run(root=root)
+    print(f"autotune cold_start: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for kernel in cold_start.KERNELS:
+        r = cold[kernel]["topk"]
+        if r["n_transfer"] != 1 or r["n_warm"] != 0:
+            raise AssertionError(f"cold_start {kernel}: transfer measured "
+                                 f"{r['n_transfer']}, warm lookup "
+                                 f"{r['n_warm']}")
+    # a native winner of cold_start's searches is a finding: every
+    # candidate of that space at that shape, timed on the device (CUDA
+    # events) and on the host (min of 3, the device synchronised)
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    for kernel in cold_start.KERNELS:
+        picks = {mode: cold[kernel][mode]["cfg"] for mode in ("topk",
+                                                               "full")}
+        natives = {m: c for m, c in picks.items() if c["impl"] != "cuda"}
+        if not natives:
+            continue
+        for mode, c in natives.items():
+            print(f"autotune {kernel} winner={_cfg_str(c)} (not the CUDA "
+                  f"kernel) in cold_start's {mode} search at "
+                  f"{cold_start.SHAPES[kernel]}", flush=True)
+        _, run, cands = cold_start.setup(kernel, device=dev)
+        for c in cands:
+            ms = time_ms(torch, lambda: run(c), flush, iters=10)
+            host = measure(lambda: run(c), warmup=1, iters=3, reduce="min")
+            print(f"autotune {kernel} cold_start shape candidate "
+                  f"{_cfg_str(c)}: device_ms={ms:.4f} "
+                  f"host_ms={host * 1e3:.4f}", flush=True)
+    del flush
+    b = cold["hybrid"]["b"]
+    if b["probes_first_call"] != 0 or not cold["hybrid"]["plan_match"]:
+        raise AssertionError(
+            f"cold_start hybrid: the fresh process's first call probed "
+            f"{b['probes_first_call']}, plan {b['plan']} against "
+            f"{cold['hybrid']['a']['next_plan']} (chunk "
+            f"{cold['hybrid']['a']['chunk_units']} units)")
+    t0 = time.perf_counter()
+    fig5_tasks.run()
+    print(f"autotune fig5_tasks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    os.environ["REPRO_AUTOTUNE"] = "0"
+    at.reset_tune_cache()
+    print(f"autotune phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return per_call
+
+
+# ---------------------------------------------------------------------------
 # LM phase
 # ---------------------------------------------------------------------------
 def profile_window(torch, label, fn, top=6):
@@ -1611,6 +2008,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA GPU")
     os.environ["REPRO_CALIB_CACHE"] = "0"
+    # every phase but the autotune phase runs the routes' defaults
+    os.environ["REPRO_AUTOTUNE"] = "0"
     sys.path.insert(0, SRC)
     from repro_torch.kernels import common
 
@@ -1643,6 +2042,7 @@ def main() -> None:
     per_call["table2"] = table2_phase(torch)
     per_call["figures"] = figures_phase(torch)
     table1_phase(torch, np)
+    per_call.update(autotune_phase(torch, np, dev))
     for r in rows:
         if r["name"] in LM_ENTRY:
             r["launches_per_prefill"] = lm_per["prefill"][r["name"]]

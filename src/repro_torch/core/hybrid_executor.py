@@ -183,6 +183,9 @@ class HybridExecutor:
         self.cache = get_calibration_cache(self.backend)
         self._cache_key: Optional[str] = None
         self._warm = False
+        # probe executions paid by the last calibrate() (0 = every
+        # group seeded from the cache or the model)
+        self.last_probe_runs = 0
 
     # ------------------------------------------------------------------
     def calibrate(self, fn: Callable[[str, int], object], probe_units: int,
@@ -209,11 +212,14 @@ class HybridExecutor:
         a first-use kernel build or allocation never distorts the
         measurement), *under the group's pinned device context*, so
         each group warms its own device.
+        ``last_probe_runs`` reports how many groups probed (0 = fully
+        cache/model seeded: a fresh process's zero-probe first call).
         """
         self.tracker.reset()
         self._cache_key = workload
         probe_units = max(int(probe_units), 1)
         warm = True
+        self.last_probe_runs = 0
         for g in self.groups:
             cached = (self.cache.get(workload, g.name, g.slowdown)
                       if workload else None)
@@ -235,6 +241,7 @@ class HybridExecutor:
             with device_ctx(g):
                 t = measure(lambda: fn(g.name, probe_units), warmup=1,
                             iters=1)
+            self.last_probe_runs += 1
             t *= g.slowdown
             self.tracker.update(g.name, probe_units, t)
             if workload:

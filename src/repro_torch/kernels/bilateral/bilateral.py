@@ -24,6 +24,8 @@ default off the TPU, and so the host lane here.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -46,6 +48,15 @@ def route(K: int, n_levels: int) -> str:
     return TILED_ENTRY
 
 
+def entries(K: int, n_levels: int):
+    """The C entry points that filter with a (K, K) spatial LUT and
+    ``n_levels`` range levels correctly: the register-blocked kernel
+    only inside its K and level limits, the first version at every
+    shape — the autotune search's CUDA family."""
+    return ([REG_ENTRY, TILED_ENTRY] if route(K, n_levels) == REG_ENTRY
+            else [TILED_ENTRY])
+
+
 def smem_bytes(entry: str, K: int, n_levels: int) -> int:
     """Shared memory of one block of ``entry``: the halo window, the
     spatial LUT and the range LUT (32 copies on the register route)."""
@@ -55,11 +66,13 @@ def smem_bytes(entry: str, K: int, n_levels: int) -> int:
     return 4 * ((TILE_W + K - 1) * (TILE_H + K - 1) + K * K + n_levels)
 
 
-def bilateral_cuda(img: torch.Tensor, sp: torch.Tensor, rl: torch.Tensor
-                   ) -> torch.Tensor:
+def bilateral_cuda(img: torch.Tensor, sp: torch.Tensor, rl: torch.Tensor,
+                   entry: Optional[str] = None) -> torch.Tensor:
     """img: (H, W) f32 intensities in [0, 255]; sp: (K, K) f32 spatial
     LUT, odd K; rl: (n_levels,) f32 range LUT.  Edge-padded at the
-    image's own border."""
+    image's own border.  ``entry`` names the C entry point (default:
+    ``route(K, n_levels)``); one that ``entries`` does not list
+    raises."""
     dev = check_cuda("bilateral", img, sp, rl, dtypes=(torch.float32,) * 3)
     if img.dim() != 2 or sp.dim() != 2 or sp.shape[0] != sp.shape[1] \
             or sp.shape[0] % 2 == 0 or rl.dim() != 1 or rl.numel() < 1:
@@ -70,7 +83,12 @@ def bilateral_cuda(img: torch.Tensor, sp: torch.Tensor, rl: torch.Tensor
     H, W = img.shape
     K = sp.shape[0]
     n_levels = rl.shape[0]
-    entry = route(K, n_levels)
+    if entry is None:
+        entry = route(K, n_levels)
+    elif entry not in entries(K, n_levels):
+        raise ValueError(f"bilateral: entry {entry!r} cannot run K={K} "
+                         f"with {n_levels} levels (valid: "
+                         f"{entries(K, n_levels)})")
     smem = smem_bytes(entry, K, n_levels)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"bilateral: K={K} with {n_levels} levels needs "

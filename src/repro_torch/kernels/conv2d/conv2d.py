@@ -20,6 +20,8 @@ candidate, which it names the CPU winner, and so the host lane here.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.common import check_cuda, launch
@@ -36,6 +38,13 @@ def route(K: int) -> str:
     kernel (K a template argument) for K <= 15, else the first
     version."""
     return REG_ENTRY if K <= REG_MAX_K else TILED_ENTRY
+
+
+def entries(K: int):
+    """The C entry points that compute an odd (K, K) filter correctly:
+    the register-blocked kernel only up to its template limit, the first
+    version at every K — the autotune search's CUDA family."""
+    return [REG_ENTRY, TILED_ENTRY] if K <= REG_MAX_K else [TILED_ENTRY]
 
 
 def tile(entry: str):
@@ -62,9 +71,11 @@ def smem_bytes(entry: str, K: int) -> int:
     return 4 * (wh * ww + K * kp)
 
 
-def conv2d_cuda(img: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv2d_cuda(img: torch.Tensor, w: torch.Tensor,
+                entry: Optional[str] = None) -> torch.Tensor:
     """'same' 2-D correlation on the GPU. img: (H, W) f32; w: (K, K) f32,
-    odd K."""
+    odd K.  ``entry`` names the C entry point (default: ``route(K)``);
+    one that ``entries(K)`` does not list raises."""
     dev = check_cuda("conv2d", img, w, dtypes=(torch.float32,) * 2)
     if img.dim() != 2 or w.dim() != 2 or w.shape[0] != w.shape[1] \
             or w.shape[0] % 2 == 0:
@@ -73,7 +84,11 @@ def conv2d_cuda(img: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(w.shape)}")
     H, W = img.shape
     K = w.shape[0]
-    entry = route(K)
+    if entry is None:
+        entry = route(K)
+    elif entry not in entries(K):
+        raise ValueError(f"conv2d: entry {entry!r} cannot run K={K} "
+                         f"(valid: {entries(K)})")
     smem = smem_bytes(entry, K)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"conv2d: K={K} needs {smem} B of shared memory")

@@ -22,6 +22,8 @@ whole expert weight exists (kimi-k2's is 22.5 GB).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.common import check_cuda, launch
@@ -42,6 +44,15 @@ def route(dtype: torch.dtype, D: int, F: int, aligned: bool = True) -> str:
     return FMA_ENTRY[dtype]
 
 
+def entries(dtype: torch.dtype, D: int, F: int, aligned: bool = True):
+    """The C entry points that compute operands of ``dtype`` correctly:
+    the tensor-core kernel only where ``route`` may take it (never f32:
+    TF32 would break the 2e-4 tolerance), the CUDA-core kernel of the
+    dtype always — the autotune search's CUDA family."""
+    first = route(dtype, D, F, aligned)
+    return [first] + ([FMA_ENTRY[dtype]] if first == WGMMA_ENTRY else [])
+
+
 def _shapes(x: torch.Tensor, w: torch.Tensor):
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
             or w.shape[1] != x.shape[2]:
@@ -51,10 +62,13 @@ def _shapes(x: torch.Tensor, w: torch.Tensor):
     return E, C, D, w.shape[2]
 
 
-def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gmm_cuda(x: torch.Tensor, w: torch.Tensor,
+             entry: Optional[str] = None) -> torch.Tensor:
     """x: (E, C, D); w: (E, D, F), contiguous, both f32 or both bf16 on
     one GPU.  Returns (E, C, F) in x's type.  The kernel defines no
-    backward: inputs that require grad raise."""
+    backward: inputs that require grad raise.  ``entry`` names the C
+    entry point (default: ``route``'s); one that ``entries`` does not
+    list raises."""
     if x.dtype not in FMA_ENTRY:
         raise ValueError(f"gmm: dtype {x.dtype} not supported")
     dev = check_cuda("gmm", x, w, dtypes=(x.dtype, x.dtype))
@@ -64,11 +78,17 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     E, C, D, F = _shapes(x, w)
     if E > 65535 or -(-C // 128) > 65535:
         raise ValueError(f"gmm: E={E}, C={C} exceed the grid's limits")
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if entry is None:
+        entry = route(x.dtype, D, F, aligned)
+    elif entry not in entries(x.dtype, D, F, aligned):
+        raise ValueError(f"gmm: entry {entry!r} cannot run {x.dtype} at "
+                         f"D={D}, F={F} (valid: "
+                         f"{entries(x.dtype, D, F, aligned)})")
     out = torch.empty((E, C, F), dtype=x.dtype, device=dev)
     if E and C and F:
         if D:
-            aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-            launch("gmm", route(x.dtype, D, F, aligned), dev, x.data_ptr(),
+            launch("gmm", entry, dev, x.data_ptr(),
                    w.data_ptr(), out.data_ptr(), E, C, D, F)
         else:
             out.zero_()

@@ -16,14 +16,17 @@ C entry ``route`` picks:
   shared memory, ``out`` zeroed by the wrapper.
 
 ``hist_bincount`` is ``torch.bincount`` — the reference's
-``xla_bincount`` / ``host_bincount`` candidates, the host lane here.
+``xla_bincount`` candidate, the host lane here; ``hist_sort`` (sort +
+``searchsorted``) and ``hist_host`` (``np.bincount`` on the host) are
+its ``xla_sort`` and ``host_bincount``.
 """
 from __future__ import annotations
 
 import functools
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.common import check_cuda, launch
@@ -40,6 +43,15 @@ def route(n_bins: int) -> str:
     kernel while 32 replicas of them fit a block's shared memory, else
     the first version."""
     return PRIV_ENTRY if n_bins <= PRIV_MAX_BINS else SHARED_ENTRY
+
+
+def entries(n_bins: int):
+    """The C entry points that count ``n_bins`` bins correctly: the
+    bank-private kernel only while its replicas fit a block, the first
+    version at every count the wrapper takes — the autotune search's
+    CUDA family."""
+    return ([PRIV_ENTRY, SHARED_ENTRY] if n_bins <= PRIV_MAX_BINS
+            else [SHARED_ENTRY])
 
 
 def smem_bytes(entry: str, n_bins: int) -> int:
@@ -82,17 +94,25 @@ def _launches(device: torch.device) -> _Launches:
     return entry
 
 
-def hist_cuda(x: torch.Tensor, n_bins: int) -> torch.Tensor:
+def hist_cuda(x: torch.Tensor, n_bins: int,
+              entry: Optional[str] = None) -> torch.Tensor:
     """x: (N,) int32 keys on a GPU. Returns (n_bins,) int32 counts;
-    keys outside [0, n_bins) are ignored."""
+    keys outside [0, n_bins) are ignored.  ``entry`` names the C entry
+    point (default: ``route(n_bins)``); one that ``entries(n_bins)``
+    does not list raises."""
     dev = check_cuda("hist", x, dtypes=(torch.int32,))
     if x.dim() != 1:
         raise ValueError(f"hist: need a 1-D key tensor, got {x.dim()}-D")
     if not 0 < n_bins <= _MAX_BINS:
         raise ValueError(f"hist: n_bins={n_bins} outside (0, {_MAX_BINS}]")
+    if entry is None:
+        entry = route(n_bins)
+    elif entry not in entries(n_bins):
+        raise ValueError(f"hist: entry {entry!r} cannot count {n_bins} "
+                         f"bins (valid: {entries(n_bins)})")
     if not x.numel():
         return torch.zeros(n_bins, dtype=torch.int32, device=dev)
-    if route(n_bins) == PRIV_ENTRY:
+    if entry == PRIV_ENTRY:
         out = torch.empty(n_bins, dtype=torch.int32, device=dev)
         nums = _launches(dev)
         with nums.lock:
@@ -116,3 +136,21 @@ def hist_bincount(x: torch.Tensor, n_bins: int) -> torch.Tensor:
         if int(lo) < 0 or int(hi) >= n_bins:
             x = x[(x >= 0) & (x < n_bins)]
     return torch.bincount(x, minlength=n_bins)[:n_bins].to(torch.int32)
+
+
+def hist_sort(x: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Sort + searchsorted: counts are the differences of the bin edges'
+    insertion points (no scatter); keys outside the bins fall before
+    edge 0 or after edge n_bins."""
+    xs = torch.sort(x.reshape(-1).to(torch.int32)).values
+    edges = torch.searchsorted(
+        xs, torch.arange(n_bins + 1, dtype=torch.int32, device=x.device))
+    return torch.diff(edges).to(torch.int32)
+
+
+def hist_host(x: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """``np.bincount`` on the host, the result on ``x``'s device."""
+    xv = x.reshape(-1).cpu().numpy()
+    xv = xv[(xv >= 0) & (xv < n_bins)]
+    counts = np.bincount(xv, minlength=n_bins)[:n_bins].astype(np.int32)
+    return torch.from_numpy(counts).to(x.device)

@@ -10,14 +10,15 @@ scalar tail; x is gathered through L1/L2 — so the reference's "x must
 fit VMEM" limit does not apply.  When vals and idx lie in different
 16-byte phases (``vector_loads``) the entry runs its scalar
 instantiation.  The first version, ``spmv_ell_f32`` (a warp a row),
-stays in the library for comparison; no route takes it.
+stays in the library for comparison and as an autotune candidate; no
+route takes it.
 
 Rows are sorted by nnz and split at a threshold exactly as in the
 reference; the sparse tail goes to the COO segment-sum in ``ops.py``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -39,6 +40,13 @@ def route(K: int) -> Tuple[str, int]:
     return SEG_ENTRY, TPRS[-1]
 
 
+def entries() -> List[Tuple[str, Optional[int]]]:
+    """Every (C entry, threads a row) that computes an ELL product of
+    any K: ``spmv_ell_seg_f32`` at each instantiation and the first
+    version (threads a row None) — the autotune search's CUDA family."""
+    return [(SEG_ENTRY, t) for t in TPRS] + [(WARP_ENTRY, None)]
+
+
 def vector_loads(vals_ptr: int, idx_ptr: int) -> bool:
     """Whether rows of vals and idx starting at these addresses share
     their 16-byte boundaries, so the kernel can load both as float4 /
@@ -52,10 +60,14 @@ def blocks(R: int, tpr: int) -> int:
     return -(-R // (THREADS // tpr))
 
 
-def spmv_ell_cuda(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor
+def spmv_ell_cuda(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor,
+                  entry: Optional[str] = None, tpr: Optional[int] = None
                   ) -> torch.Tensor:
     """ELL spmv on a GPU: vals (R, K) f32 zero-padded, idx (R, K) int32,
-    x (C,) f32. Returns (R,) f32; an index outside [0, C) adds 0."""
+    x (C,) f32. Returns (R,) f32; an index outside [0, C) adds 0.
+    ``entry`` and ``tpr`` name the C entry point and its threads a row
+    (default: ``route(K)``); a pair ``entries()`` does not list
+    raises."""
     dev = check_cuda("spmv_ell", vals, idx, x,
                      dtypes=(torch.float32, torch.int32, torch.float32))
     if vals.dim() != 2 or idx.shape != vals.shape or x.dim() != 1:
@@ -64,8 +76,15 @@ def spmv_ell_cuda(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor
                          f"{tuple(x.shape)}")
     R, K = vals.shape
     y = torch.empty(R, dtype=torch.float32, device=dev)
-    if R:
+    if entry is None:
         entry, tpr = route(K)
+    elif (entry, tpr) not in entries():
+        raise ValueError(f"spmv_ell: no entry {entry!r} at tpr={tpr} "
+                         f"(valid: {entries()})")
+    if R and entry == WARP_ENTRY:
+        launch("spmv_ell", entry, dev, vals.data_ptr(), idx.data_ptr(),
+               x.data_ptr(), y.data_ptr(), R, K, x.shape[0])
+    elif R:
         launch("spmv_ell", entry, dev, vals.data_ptr(), idx.data_ptr(),
                x.data_ptr(), y.data_ptr(), R, K, x.shape[0], tpr,
                int(vector_loads(vals.data_ptr(), idx.data_ptr())))

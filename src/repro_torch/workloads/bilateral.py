@@ -3,9 +3,11 @@
 The host precomputes the spatial/range LUTs (the paper's transcendental
 trick) on a host task pool; rows are then work-shared.  Each group
 filters its rows from its own copy of the image and the LUTs on its own
-device (the GPU group through the CUDA kernel, the CPU group through
-the plain LUT filter); ``combine`` gathers the row blocks onto the
-accel group's device inside the executor's timed merge.
+device with the autotuned config of that device (searched apart on the
+real pair, at the shape of one chunk with its halo; with the search
+off, the CUDA kernel and the plain LUT filter); ``combine`` gathers the
+row blocks onto the accel group's device inside the executor's timed
+merge.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from repro_torch.core.async_executor import primary_device
 from repro_torch.core.cost_model import CostTerms
 from repro_torch.core.host_offload import HostTaskPool, bilateral_luts
 from repro_torch.core.hybrid_executor import HybridExecutor, WorkSharedOutput
-from repro_torch.kernels.bilateral.ops import bilateral_filter
+from repro_torch.kernels.bilateral.ops import (bilateral_filter,
+                                               tuned_config)
 from repro_torch.kernels.common import sync_device, to_device
+from repro_torch.workloads import tuned_per_device
 
 
 @functools.lru_cache(maxsize=8)
@@ -56,12 +60,16 @@ def run_hybrid(ex: HybridExecutor, size: int = 512, sigma_s: float = 3.0,
         placed[g.name] = (_placed(size, 0, str(dev)),
                           *to_device((sp, rl), dev))
     dest = primary_device(ex.groups[0])
+    # each device's winner at the shape of one chunk with its halo rows
+    rows = min(H, max(H // ex.n_chunks, 1) + 2 * radius)
+    cfgs = tuned_per_device(placed, lambda p: tuned_config(p[0][:rows],
+                                                           p[1], p[2]))
 
     def run_share(group, start, n):
         img, sp_d, rl_d = placed[group]
         lo = max(0, start - radius)
         hi = min(H, start + n + radius)
-        out = bilateral_filter(img[lo:hi], sp_d, rl_d)
+        out = bilateral_filter(img[lo:hi], sp_d, rl_d, config=cfgs[group])
         out = out[start - lo:start - lo + n]
         sync_device(img.device)
         return out

@@ -6,9 +6,11 @@ image with a 15x15 filter.  Here the split comes from calibrated
 throughput and the halo rows are the only communication (K-1 rows).
 
 Each group convolves its rows from its own copy of the inputs on its
-own device (the GPU group through the CUDA kernel, the CPU group
-through the shift-add peer); ``combine`` gathers the row blocks onto
-the accel group's device inside the executor's timed merge.
+own device with the autotuned config of that device (on the real pair
+the GPU group's and the CPU group's winners are searched apart, at the
+shape of one chunk with its halo; with the search off, the CUDA kernel
+and the shift-add peer); ``combine`` gathers the row blocks onto the
+accel group's device inside the executor's timed merge.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch.core.async_executor import primary_device
 from repro_torch.core.cost_model import CostTerms
 from repro_torch.core.hybrid_executor import HybridExecutor, WorkSharedOutput
 from repro_torch.kernels.common import sync_device, to_device
-from repro_torch.kernels.conv2d.ops import conv2d
+from repro_torch.kernels.conv2d.ops import conv2d, tuned_config
+from repro_torch.workloads import tuned_per_device
 
 
 @functools.lru_cache(maxsize=8)
@@ -39,14 +42,14 @@ def _placed(size: int, ksize: int, seed: int, device: str):
     return to_device(make_inputs(size, ksize, seed), device)
 
 
-def conv_rows(img: torch.Tensor, w: torch.Tensor, start: int, n: int
-              ) -> torch.Tensor:
+def conv_rows(img: torch.Tensor, w: torch.Tensor, start: int, n: int,
+              config=None) -> torch.Tensor:
     """Convolve rows [start, start+n) with halo (the share kernel)."""
     K = w.shape[0]
     r = K // 2
     lo = max(0, start - r)
     hi = min(img.shape[0], start + n + r)
-    out = conv2d(img[lo:hi], w)
+    out = conv2d(img[lo:hi], w, config=config)
     return out[start - lo:start - lo + n]
 
 
@@ -56,10 +59,14 @@ def run_hybrid(ex: HybridExecutor, size: int = 512, ksize: int = 15,
     placed = {g.name: _placed(size, ksize, 0, str(primary_device(g)))
               for g in ex.groups}
     dest = primary_device(ex.groups[0])
+    # each device's winner at the shape of one chunk with its halo rows
+    rows = min(size, max(size // ex.n_chunks, 1) + ksize - 1)
+    cfgs = tuned_per_device(placed, lambda p: tuned_config(p[0][:rows],
+                                                           p[1]))
 
     def run_share(group, start, n):
         img, w = placed[group]
-        out = conv_rows(img, w, start, n)
+        out = conv_rows(img, w, start, n, config=cfgs[group])
         sync_device(img.device)
         return out
 

@@ -1,9 +1,11 @@
 """Hist workload (paper §4.2): memory-bound, atomics, work-shared.
 
 Data is split between the groups, each computes a partial histogram
-(shared-memory atomics on the GPU, bincount on the CPU) from its own
-copy of the keys, and the partials merge bin by bin on the accel
-group's device — the paper's §4.2 verbatim.
+from its own copy of the keys with the autotuned config of its device
+(searched apart on the real pair, at the size of one chunk; with the
+search off, shared-memory atomics on the GPU, bincount on the CPU), and
+the partials merge bin by bin on the accel group's device — the
+paper's §4.2 verbatim.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from repro_torch.core.async_executor import primary_device
 from repro_torch.core.cost_model import CostTerms
 from repro_torch.core.hybrid_executor import HybridExecutor, WorkSharedOutput
 from repro_torch.kernels.common import sync_device, to_device
-from repro_torch.kernels.hist.ops import histogram
+from repro_torch.kernels.hist.ops import histogram, tuned_config
+from repro_torch.workloads import tuned_per_device
 
 
 @functools.lru_cache(maxsize=8)
@@ -39,12 +42,17 @@ def run_hybrid(ex: HybridExecutor, n: int = 1 << 20, n_bins: int = 256,
     placed = {g.name: _placed(n, n_bins, 0, str(primary_device(g)))
               for g in ex.groups}
     dest = primary_device(ex.groups[0])
+    # each device's winner at the size of one chunk's keys
+    chunk = max(units // ex.n_chunks, 1) * unit
+    cfgs = tuned_per_device(placed,
+                            lambda x: tuned_config(x[:chunk], n_bins))
 
     def run_share(group, start, k):
         x = placed[group]
         if k <= 0:
             return torch.zeros(n_bins, dtype=torch.int32, device=x.device)
-        out = histogram(x[start * unit:(start + k) * unit], n_bins)
+        out = histogram(x[start * unit:(start + k) * unit], n_bins,
+                        config=cfgs[group])
         sync_device(x.device)
         return out
 

@@ -56,16 +56,18 @@ def _bin_data(x: torch.Tensor, n_bins: int):
     return sorted_by_bin, counts, starts.to(torch.int32)
 
 
-def leaf_sort_bitonic(chunk: torch.Tensor, tile: int = 1024) -> torch.Tensor:
+def leaf_sort_bitonic(chunk: torch.Tensor, tile: int = 1024,
+                      config=None) -> torch.Tensor:
     """Leaf sorter: pad with +inf to whole ``tile``-wide rows, sort the
-    rows (the bitonic kernel on a GPU tensor), then a final sort of the
+    rows (config=None -> the autotuned row sorter; with the search off,
+    the bitonic kernel on a GPU tensor), then a final sort of the
     flattened rows; cut back to the chunk's length."""
     n = chunk.shape[0]
     pad = (-n) % tile
     padded = torch.cat([chunk, torch.full((pad,), float("inf"),
                                           dtype=chunk.dtype,
                                           device=chunk.device)])
-    rows = sort_rows(padded.reshape(-1, tile))
+    rows = sort_rows(padded.reshape(-1, tile), config=config)
     return torch.sort(rows.reshape(-1)).values[:n]
 
 

@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.async_executor import primary_device
 from repro_torch.core.cost_model import CostTerms
 from repro_torch.core.hybrid_executor import HybridExecutor, WorkSharedOutput
+from repro_torch.kernels.autotune import bucket
 from repro_torch.kernels.common import sync_device, to_device
 from repro_torch.kernels.spmv import ops as spmv_ops
 
@@ -73,6 +74,29 @@ def _per_path_unit_cost(unit: int) -> Dict[str, CostTerms]:
     }
 
 
+def _tuned_ell_configs(A_sorted: np.ndarray, nnz_sorted: np.ndarray,
+                       dev: torch.device, x: torch.Tensor, key: tuple
+                       ) -> Dict[int, dict]:
+    """The ELL config of every tile width a share can pack, resolved in
+    the call's set-up so the search never runs inside calibration or
+    the timed call.  Rows are sorted by nnz, so a 512-row tile that
+    starts at row r packs ``max(nnz[r], 1)`` wide; each width bucket is
+    tuned once, on the 512-row tile at its first row, and serves every
+    tile of that bucket (the candidates do not depend on the rows)."""
+    cfgs = {}
+    widths = np.maximum(nnz_sorted, 1)
+    for b in sorted({bucket(int(k)) for k in widths}):
+        r0 = int(np.argmax(widths <= b))            # first row in bucket b
+        rep = ("ell-rep", *key, r0, str(dev))
+        if rep not in _PREP_CACHE:
+            _PREP_CACHE[rep] = spmv_ops.prepare(
+                A_sorted[r0:r0 + 512], k_threshold=int(widths[r0]),
+                device=dev)
+        m_ = _PREP_CACHE[rep]
+        cfgs[b] = spmv_ops.tuned_config(m_.ell_vals, m_.ell_idx, x)
+    return cfgs
+
+
 def make_share_spec(devices: Dict[str, torch.device], dest: torch.device,
                     n: int = 2048, density: float = 0.01, seed: int = 0
                     ) -> ShareSpec:
@@ -95,6 +119,8 @@ def make_share_spec(devices: Dict[str, torch.device], dest: torch.device,
     total_nnz = int(cum_nnz[-1])
     unit = max(total_nnz // 256, 1)
     total_units = total_nnz // unit
+    ell_cfgs = _tuned_ell_configs(A_sorted, nnz[order], devices["accel"],
+                                  xs["accel"], (n, density, seed))
 
     def rows_of(start_u, k_u):
         lo = int(np.searchsorted(cum_nnz, start_u * unit, side="left"))
@@ -128,7 +154,11 @@ def make_share_spec(devices: Dict[str, torch.device], dest: torch.device,
                      block[rr, cc]), dev)
         x = xs[group]
         if group == "accel":
-            y = torch.cat([spmv_ops.spmv(m_, x) for m_ in _PREP_CACHE[key]])
+            # each tile on its width's tuned config (set-up resolved it)
+            y = torch.cat([
+                spmv_ops.spmv(m_, x,
+                              config=ell_cfgs[bucket(m_.ell_vals.shape[1])])
+                for m_ in _PREP_CACHE[key]])
         else:
             rr, cc, vv = _PREP_CACHE[key]
             y = spmv_ops.spmv_coo(rr, cc, vv, x, hi - lo)

@@ -27,21 +27,32 @@ import torch
 from repro_torch.core import cost_model
 from repro_torch.core.cost_model import probe_add_one
 from repro_torch.core.host_offload import bilateral_luts
+from repro_torch.kernels import autotune as at
 from repro_torch.kernels import common
 from repro_torch.kernels.bilateral import bilateral as bilateral_kernel
+from repro_torch.kernels.bilateral import ops as bilateral_ops
 from repro_torch.kernels.bilateral.bilateral import (bilateral_cuda,
                                                      bilateral_lut_torch)
 from repro_torch.kernels.conv2d import conv2d as conv_kernel
+from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d.conv2d import conv2d_cuda, conv2d_shift_add
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_cuda)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    route as flash_route)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
+from repro_torch.kernels.gmm.gmm import route as gmm_route
 from repro_torch.kernels.hist import hist as hist_kernel
+from repro_torch.kernels.hist import ops as hist_ops
 from repro_torch.kernels.hist.hist import hist_cuda
 from repro_torch.kernels.hist.ref import hist_ref
+from repro_torch.kernels.sort_bitonic import ops as sort_ops
 from repro_torch.kernels.sort_bitonic.sort_bitonic import (
     bitonic_rows_torch, sort_rows_cuda)
+from repro_torch.kernels.spmv import ops as spmv_ops
 from repro_torch.kernels.spmv import spmv as spmv_kernel
 from repro_torch.kernels.spmv.ref import spmv_ell_ref
 from repro_torch.kernels.spmv.spmv import spmv_ell_cuda
@@ -802,3 +813,245 @@ def test_table2_runs_all_thirteen_on_the_simulated_pair_on_gpu(gpu,
         assert len(rs) == 13
         assert all(r.hybrid_time > 0 for r in rs)
         assert {r.mode for r in rs if r.mode} == {"virtual"}
+
+
+# ----------------------------------------------- autotune on the card
+def _tune_cases(dev):
+    """kernel -> (ops module, shape args of candidates(), call(cfg),
+    plain value, tolerance, launch-count name, the route's entry)."""
+    rng = np.random.default_rng(19)
+
+    def randn(*shape, dtype=torch.float32):
+        return _t(rng.standard_normal(shape).astype(np.float32)).to(
+            dev, dtype)
+
+    cases = {}
+    for K in (15, 17):
+        img, w = randn(50, 64), randn(K, K)
+        cases[f"conv2d K={K}"] = (
+            conv_ops, (50, 64, K),
+            lambda c, img=img, w=w: conv_ops.conv2d(img, w, config=c),
+            conv2d_shift_add(img, w), 2e-4, "conv2d",
+            conv_kernel.route(K))
+    for bins in (256, 1817):
+        x = _t(rng.integers(-2, bins + 2, 100_003, dtype=np.int32)).to(dev)
+        cases[f"hist bins={bins}"] = (
+            hist_ops, (x.numel(), bins),
+            lambda c, x=x, bins=bins: hist_ops.histogram(x, bins, config=c),
+            hist_ref(x, bins), 0, "hist", hist_kernel.route(bins))
+    vals, xv = randn(100, 201), randn(500)
+    idx = _t(rng.integers(0, 500, (100, 201), dtype=np.int32)).to(dev)
+    cases["spmv"] = (
+        spmv_ops, (100, 201),
+        lambda c: spmv_ops.spmv_ell(vals, idx, xv, config=c),
+        spmv_ell_ref(vals, idx, xv), 2e-5, "spmv_ell",
+        spmv_kernel.route(201)[0])
+    pix = (randn(64, 48).abs() * 60).clamp(0, 255)
+    for radius in (2, 9):
+        sp, rl = (_t(a).to(dev) for a in bilateral_luts(2.0, 25.0, radius))
+        K = 2 * radius + 1
+        cases[f"bilateral r={radius}"] = (
+            bilateral_ops, (64, 48, K),
+            lambda c, sp=sp, rl=rl: bilateral_ops.bilateral_filter(
+                pix, sp, rl, config=c),
+            bilateral_lut_torch(pix, sp, rl), 1e-3, "bilateral",
+            bilateral_kernel.route(K, 256))
+    rows = randn(33, 256)
+    cases["sort"] = (sort_ops, (33, 256),
+                     lambda c: sort_ops.sort_rows(rows, config=c),
+                     bitonic_rows_torch(rows), 0, "sort_bitonic",
+                     "sort_rows_reg_f32")
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 2e-5)):
+        q = randn(2, 100, 4, 64, dtype=dtype)
+        k, v = randn(2, 100, 2, 64, dtype=dtype), randn(2, 100, 2, 64,
+                                                        dtype=dtype)
+        plain = flash_ops.flash_attention(q, k, v, use_kernel=False)
+        cases[f"flash_attention {dtype}"] = (
+            flash_ops, (100, 100, 64, True),
+            lambda c, q=q, k=k, v=v: flash_ops.flash_attention(
+                q, k, v, config=c),
+            plain, tol, "flash_attention", flash_route(dtype, 64))
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 2e-4)):
+        xe = randn(4, 24, 64, dtype=dtype)
+        we = (randn(4, 64, 80) * 0.125).to(dtype)
+        cases[f"gmm {dtype}"] = (
+            gmm_ops, (4, 24, 64, 80),
+            lambda c, xe=xe, we=we: gmm_ops.gmm(xe, we, config=c),
+            gmm_torch(xe, we), tol, "gmm", gmm_route(dtype, 64, 80))
+    return cases
+
+
+TUNE_CASES = ["conv2d K=15", "conv2d K=17", "hist bins=256",
+              "hist bins=1817", "spmv", "bilateral r=2", "bilateral r=9",
+              "sort", "flash_attention torch.bfloat16",
+              "flash_attention torch.float32", "gmm torch.bfloat16",
+              "gmm torch.float32"]
+
+
+def _candidates(ops, args, plain):
+    if ops.__name__.endswith(("flash_attention.ops", "gmm.ops")):
+        return ops.candidates(*args, device=plain.device, dtype=plain.dtype)
+    return ops.candidates(*args, device=plain.device)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", TUNE_CASES)
+def test_every_autotune_candidate_on_gpu(gpu, case):
+    """Each candidate of the space on a CUDA tensor against the plain
+    version; a CUDA candidate launches exactly its C entry, a native
+    one launches nothing."""
+    ops, args, call, plain, tol, name, _ = _tune_cases(gpu)[case]
+    cands = _candidates(ops, args, plain)
+    assert any(c["impl"] == "cuda" for c in cands)
+    for cfg in cands:
+        common.reset_launches()
+        out = call(cfg)
+        counts, entries = common.launch_counts(), common.entry_counts()
+        if cfg["impl"] == "cuda":
+            entry = cfg.get("entry") or "sort_rows_reg_f32"
+            assert counts[name] == entries[entry] == 1, cfg
+        else:
+            assert counts[name] == 0, cfg
+        if tol == 0:
+            assert torch.equal(out, plain), cfg
+        else:
+            torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                                       atol=tol, msg=lambda m: f"{cfg}: {m}")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", TUNE_CASES)
+def test_tuned_call_launches_its_config_on_gpu(gpu, case, tmp_path,
+                                               monkeypatch):
+    """With the search on, the call after the search is a cache hit
+    that launches what the winning config names (nothing of the kernel
+    for a native winner); with it off, the route's entry."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    at.reset_tune_cache()
+    try:
+        ops, args, call, plain, tol, name, route_entry = \
+            _tune_cases(gpu)[case]
+        call(None)                                  # the search
+        # flash attention's bucket counts the query heads: B * H = 8
+        bkt = ops.shape_bucket(*((8, 100, 100, 64, True)
+                                 if "flash" in case else args))
+        entry = at.tuned_entry(ops.__name__.split(".")[-2], bkt,
+                               device=gpu)
+        assert entry is not None, case
+        common.reset_launches()
+        timed = []
+        prev = at.set_timer(lambda fn: timed.append(1) or 1.0)
+        try:
+            call(None)
+        finally:
+            at.set_timer(prev)
+        assert timed == []                          # a hit: no measure
+        counts, entries = common.launch_counts(), common.entry_counts()
+        cfg = entry["config"]
+        if cfg["impl"] == "cuda":
+            assert entries[cfg.get("entry") or route_entry] == 1
+        else:
+            assert counts[name] == 0
+        monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+        common.reset_launches()
+        call(None)
+        assert common.entry_counts()[route_entry] == 1
+    finally:
+        at.reset_tune_cache()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", TUNE_CASES)
+def test_search_raises_when_the_kernel_fails_on_gpu(gpu, case, tmp_path,
+                                                    monkeypatch):
+    """A kernel whose launch fails stops the search with its error: the
+    search never settles on a native candidate in its place, and
+    nothing is written to the tune file."""
+    import importlib
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    _, _, call, *_ = _tune_cases(gpu)[case]
+
+    def failing_launch(kernel, entry, *args):
+        raise RuntimeError(f"{entry}: injected launch failure")
+    for mod in ("conv2d.conv2d", "hist.hist", "spmv.spmv",
+                "bilateral.bilateral", "sort_bitonic.sort_bitonic",
+                "flash_attention.flash_attention", "gmm.gmm"):
+        monkeypatch.setattr(importlib.import_module(
+            "repro_torch.kernels." + mod), "launch", failing_launch)
+    at.reset_tune_cache()
+    try:
+        with pytest.raises(RuntimeError, match="injected launch failure"):
+            call(None)
+        assert not (tmp_path / "tune.json").exists()
+    finally:
+        at.reset_tune_cache()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("kernel,pin,call", [
+    ("conv2d", '{"impl": "cuda", "entry": "conv2d_reg_f32"}',
+     lambda d: conv_ops.conv2d(torch.zeros(20, 20, device=d),
+                               torch.zeros(17, 17, device=d))),
+    ("hist", '{"impl": "cuda", "entry": "hist_priv_i32"}',
+     lambda d: hist_ops.histogram(
+         torch.zeros(64, dtype=torch.int32, device=d), 1817)),
+    ("flash_attention",
+     '{"impl": "cuda", "entry": "flash_attention_wgmma_bf16"}',
+     lambda d: flash_ops.flash_attention(
+         torch.zeros(1, 64, 2, 64, device=d),
+         torch.zeros(1, 64, 1, 64, device=d),
+         torch.zeros(1, 64, 1, 64, device=d))),
+    ("gmm", '{"impl": "cuda", "entry": "gmm_wgmma_bf16"}',
+     lambda d: gmm_ops.gmm(torch.zeros(2, 8, 64, device=d),
+                           torch.zeros(2, 64, 64, device=d))),
+])
+def test_pinned_forbidden_entry_raises_on_gpu(gpu, kernel, pin, call,
+                                              monkeypatch):
+    """A pinned config naming an entry the route rules out for the
+    shape raises (f32 never reaches the tensor cores): it is never
+    re-routed silently."""
+    monkeypatch.setenv("REPRO_TUNE_PIN_" + kernel.upper(), pin)
+    common.reset_launches()
+    with pytest.raises(ValueError):
+        call(gpu)
+    assert sum(common.launch_counts().values()) == 0
+
+
+@pytest.mark.needs_cuda
+def test_torch_conv_candidate_keeps_tf32_off_on_gpu(gpu):
+    """``F.conv2d`` as a candidate holds conv's 2e-4 even where the
+    caller left cuDNN's TF32 on, and leaves the flag as it found it."""
+    img = torch.randn(130, 96, device=gpu)
+    w = torch.randn(15, 15, device=gpu)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = conv_ops.conv2d(img, w, config={"impl": "torch_conv"})
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.testing.assert_close(out, conv2d_shift_add(img, w), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_ops_at_batch_one_on_gpu(gpu, dtype):
+    """B = 1 (a single prompt, cold_start's shape): every CUDA entry of
+    the space runs through ``ops.flash_attention`` and matches the plain
+    version."""
+    q = torch.randn(1, 96, 8, 64, device=gpu).to(dtype)
+    k = torch.randn(1, 96, 2, 64, device=gpu).to(dtype)
+    v = torch.randn(1, 96, 2, 64, device=gpu).to(dtype)
+    plain = flash_ops.flash_attention(q, k, v, use_kernel=False)
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
+    cands = [c for c in flash_ops.candidates(96, 96, 64, True, gpu, dtype)
+             if c["impl"] == "cuda"]
+    assert cands
+    for cfg in cands:
+        common.reset_launches()
+        out = flash_ops.flash_attention(q, k, v, config=cfg)
+        assert common.entry_counts()[cfg["entry"]] == 1
+        torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                                   atol=tol)

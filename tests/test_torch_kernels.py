@@ -466,7 +466,8 @@ OPS_CALLS = {
 
 @pytest.mark.parametrize("call", sorted(OPS_CALLS))
 def test_ops_refuse_other_configs(call):
-    """Only the default tiling exists until autotuning is ported."""
+    """A config naming an implementation the port does not have (the
+    reference's Pallas kernels) raises: it is never re-routed."""
     with pytest.raises(ValueError):
         OPS_CALLS[call]()
 
