@@ -51,7 +51,22 @@
    then K7 and K8 against their plain versions at the main path's
    shapes (and ragged ones), timed beside
    ``F.scaled_dot_product_attention`` and ``torch.bmm``.
-6. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
+6. Serve phase (the serving core): ``Scheduler()`` on the real pair,
+   cold, serves an open-loop Poisson stream (6 req/s for 10 s) of the
+   hybrid phase's workloads (hist and sort cut; spmv at two densities)
+   and then a burst of same-bucket requests that coalesce and merge:
+   per workload the placements and latency percentiles, the audited
+   invariant with nothing in flight, the placement audit, the GPU's
+   idle share over the run; every value against its check, every
+   demuxed row bitwise its member's solo run on the same device, a
+   dedicated execution on each group on its own device, K1-K4, K6 and
+   K7 (f32) on their entries.  Then the LM's weights served through
+   ``launch/serve.py``'s ``run_stream`` on the accel group alone (each
+   request's tokens equal to a solo ``generate``, K7/K8 on the tensor
+   cores), and ``launch/serve.py --hybrid`` at kimi-k2's reduced config
+   cold and warm (the GPU's rows equal to a solo ``generate`` on the
+   GPU, the host's on the CPU copy, held to it under the margin rule).
+7. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
    workloads at both of the paper's ratios (10 and 3.9) on the
    simulated pair on the GPU (``force_simulated``), a cold pass (its
    rows read the cost model's prior) and two warm passes (their rows
@@ -59,7 +74,7 @@
    their redesigned entries and K4 in the cold calibrations;
    then Fig. 4 (``fig4_overlap``), the split sweep and Fig. 3 at the
    reference's defaults, on the same pair.
-7. The other eight Table-1 workloads on the real pair: spgemm (n=4096,
+8. The other eight Table-1 workloads on the real pair: spgemm (n=4096,
    density 0.02), raycast (2^20 rays, d=128), montecarlo (2^22
    photons), listrank (2^22 nodes), concomp (2^17 vertices), lbm
    (128^3, 4 steps), dither (1024x1024) and bundle (16 cameras, 4096
@@ -69,7 +84,7 @@
    lbm and dither against the port's CPU values, listrank's ranks
    walking the list, concomp against scipy's components, bundle's
    error falling).
-8. Autotune phase (every phase before it runs with ``REPRO_AUTOTUNE=0``,
+9. Autotune phase (every phase before it runs with ``REPRO_AUTOTUNE=0``,
    so each kernel stays on its route's C entry): the search on, with a
    throwaway tune file under ``src/repro_torch/build/autotune/``; K1-K3
    and K5-K8 tuned at the main path's shapes (conv's chunk, hist's
@@ -85,7 +100,7 @@
    port-side ``overlap_check``, ``cold_start`` (subprocesses that
    import only ``repro_torch``) and ``fig5_tasks`` at the reference's
    defaults.
-9. Prints the kernels' numbers as one JSON line, the card line again,
+10. Prints the kernels' numbers as one JSON line, the card line again,
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any mismatch raises and the script exits non-zero.  It also exits
@@ -97,6 +112,7 @@ both under ``src/repro_torch/build/``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1998,6 +2014,414 @@ def lm_kernel_rows(torch, dev, flush, cfg, params):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# serve phase: the serving scheduler on the real pair
+# ---------------------------------------------------------------------------
+# the Table-1 stream: the hybrid phase's sizes, with hist and sort cut
+# so that the host lane's numpy work fits the arrival rate.  spmv comes
+# twice: at the hybrid phase's density every row has more nonzeros
+# (~82) than the adapter's ELL threshold (32, the reference's), so a
+# dedicated spmv is all COO tail and never reaches K3; at 0.003 (~25 a
+# row) the ELL head + COO tail split of the reference's adapter holds
+SERVE_RATE, SERVE_SECONDS = 6.0, 10.0
+SERVE_SPMV_HEAD = 0.003
+SERVE_MIX = (
+    ("conv", {"size": CONV_SIZE, "ksize": CONV_K}),
+    ("hist", {"n": 1 << 24, "n_bins": HIST_BINS}),
+    ("spmv", {"n": SPMV_N, "density": SPMV_DENSITY}),
+    ("spmv", {"n": SPMV_N, "density": SERVE_SPMV_HEAD}),
+    ("bilateral", {"size": BILAT_SIZE, "radius": BILAT_RADIUS}),
+    ("sort", {"n": 1 << 22}),
+    ("attention", {"batch": 4, "seq": 1024, "heads": 64, "kv_heads": 8,
+                   "dim": 112}),
+)
+# one burst of same-bucket requests a workload, all submitted together,
+# so that coalescing and the merge hooks run (seeds 0..7: the members
+# differ, so a demux that mixed rows up would show)
+SERVE_BURST = (("hist", {"n": 1 << 20}), ("sort", {"n": 1 << 16}),
+               ("conv", {"size": 512}), ("attention", {}))
+SERVE_BURST_N = 8
+# the kernels every Table-1 stream must launch, on these entries (K4 in
+# the scheduler's cold calibration: the first placement measures each
+# device's profile)
+SERVE_ENTRY = {"conv2d": "conv2d_reg_f32", "hist": "hist_priv_i32",
+               "spmv_ell": "spmv_ell_seg_f32",
+               "bilateral": "bilateral_reg_f32",
+               "flash_attention": "flash_attention_fma_f32",
+               "probe_add_one": "probe_add_one_vec_f32"}
+LM_STREAM_RATE, LM_STREAM_SECONDS = 1.0, 6.0
+
+
+def _serve_checks(torch, np):
+    """Each stream workload's check on the host: the reference value of
+    its (deterministic, seed 0) inputs, and the tolerance of the hybrid
+    phase's check of the same workload."""
+    from repro_torch.core.host_offload import bilateral_luts
+    from repro_torch.kernels.bilateral.bilateral import bilateral_lut_torch
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.workloads import bilateral, conv, hist, spmv
+    from repro_torch.workloads.requests import _attn_inputs, _sort_inputs
+
+    dev = torch.device("cuda", 0)
+    refs = {}
+    img, w = conv.make_inputs(CONV_SIZE, CONV_K)
+    refs["conv"] = (conv2d_ref(torch.tensor(img), torch.tensor(w)),
+                    TOL["conv2d"])
+    keys = hist.make_inputs(1 << 24, HIST_BINS)
+    refs["hist"] = (torch.tensor(np.bincount(keys, minlength=HIST_BINS)
+                                 .astype(np.int32)), 0)
+    x = spmv.make_vector(SPMV_N).astype(np.float64)
+    for density in (SPMV_DENSITY, SERVE_SPMV_HEAD):
+        A = spmv.make_matrix(SPMV_N, density)
+        refs[("spmv", density)] = (torch.tensor(
+            (A.astype(np.float64) @ x).astype(np.float32)), 1e-4)
+    img = bilateral.make_inputs(BILAT_SIZE)
+    sp, rl = bilateral_luts(BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS)
+    refs["bilateral"] = (bilateral_lut_torch(
+        torch.tensor(img, device=dev), torch.tensor(sp, device=dev),
+        torch.tensor(rl, device=dev)).cpu(), TOL["bilateral"])
+    refs["sort"] = (torch.from_numpy(np.sort(_sort_inputs(1 << 22, 0))), 0)
+    q, k, v = (torch.tensor(a, device=dev)
+               for a in _attn_inputs(4, 1024, 64, 112, 8, 0).host)
+    refs["attention"] = (attn_ops.sdpa(q, k, v, causal=True,
+                                       config={"impl": "torch_ref"}).cpu(),
+                         2e-5)
+    return refs
+
+
+def _as_cpu(torch, value):
+    import numpy as np
+    return (value.cpu() if isinstance(value, torch.Tensor)
+            else torch.from_numpy(np.asarray(value)))
+
+
+def serve_stream_phase(torch, np):
+    """The Table-1 stream and the burst through ``Scheduler()`` on the
+    real pair; returns the launch counts of the whole run (counts set
+    to 0 just before the scheduler is made, read after ``drain()``)."""
+    from repro_torch.core import cost_model
+    from repro_torch.kernels import common
+    from repro_torch.kernels.common import lane_device
+    from repro_torch.serve.request_queue import RequestRejected
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.workloads import requests as adapters
+
+    t0 = time.perf_counter()
+    refs = _serve_checks(torch, np)
+    print(f"serve: reference values made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # every request resolves exactly once: count each future's callbacks
+    resolved = {}
+
+    def on_done(f):
+        resolved[id(f)] = resolved.get(id(f), 0) + 1
+
+    # the first placement of a fresh scheduler measures each device's
+    # hardware profile (K4 on the card): a cold calibration
+    cost_model.reset_profiles()
+    common.reset_launches()
+    # explore_every=8: each workload is dispatched ~10 times in the
+    # trace, fewer than the default 16 that lets a lane the estimates
+    # pass over run it once
+    sched = Scheduler(max_batch=SERVE_BURST_N, batch_window_s=0.005,
+                      explore_every=8)
+    groups = {g.name: str(g.devices[0]) for g in sched.groups}
+    print(f"serve: groups={groups} simulated={sched._ex.simulated} "
+          f"span_factors={sched.span_factors}", flush=True)
+    if groups != {"accel": "cuda:0", "host": "cpu"}:
+        raise AssertionError(f"serve: expected accel=cuda:0 host=cpu, got "
+                             f"{groups}")
+    # every request's inputs made (and memoized) before the trace, as a
+    # service holds its data: the burst's submissions then take
+    # microseconds and land inside one batching window
+    for wl, payload in SERVE_MIX:
+        adapters.make_request(wl, payload)
+    for wl, payload in SERVE_BURST:
+        for seed in range(SERVE_BURST_N):
+            adapters.make_request(wl, dict(payload, seed=seed))
+    rng = np.random.default_rng(0)
+    futs = []                       # (workload, payload, t_submit, future)
+    done_at = {}
+
+    def submit(wl, payload):
+        f = sched.submit(wl, payload)
+        f.add_done_callback(on_done)
+        f.add_done_callback(
+            lambda f_: done_at.__setitem__(id(f_), time.perf_counter()))
+        futs.append((wl, payload, time.perf_counter(), f))
+
+    # the device's kernels, copies and memsets over the whole run, for
+    # the GPU's idle share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        t_end = t_start + SERVE_SECONDS
+        while time.perf_counter() < t_end:
+            wl, payload = SERVE_MIX[int(rng.integers(len(SERVE_MIX)))]
+            submit(wl, dict(payload))
+            time.sleep(float(rng.exponential(1.0 / SERVE_RATE)))
+        n_stream = len(futs)
+        for wl, payload in SERVE_BURST:
+            for seed in range(SERVE_BURST_N):
+                submit(wl, dict(payload, seed=seed))
+        if not sched.drain(timeout=600):
+            raise AssertionError("serve: drain() timed out")
+        wall = time.perf_counter() - t_start
+    gpu_busy = _union_s([(e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)])
+    counts, entries = common.launch_counts(), common.entry_counts()
+    st = sched.stats
+    audit = sched.audit.summary()
+    sched.shutdown()
+
+    # the audited invariant, with nothing left in flight
+    rejected = st.rejected_full + st.rejected_shutdown + st.rejected_failure
+    shed = st.shed_deadline + st.shed_brownout
+    print(f"serve stream: {st.row()}")
+    print(f"serve stream: invariant submitted={st.submitted} == completed="
+          f"{st.completed} + failed={st.failed} + rejected={rejected} + "
+          f"shed={shed} + in_flight={st.in_flight}", flush=True)
+    if (st.submitted != st.completed + st.failed + rejected + shed
+            + st.in_flight or st.in_flight != 0
+            or st.submitted != len(futs)):
+        raise AssertionError("serve stream: the audited invariant fails")
+    if st.failed or rejected or shed:
+        raise AssertionError(f"serve stream: {st.failed} failed, "
+                             f"{rejected} rejected, {shed} shed")
+    if any(resolved.get(id(f), 0) != 1 for _, _, _, f in futs):
+        raise AssertionError("serve stream: a future did not resolve "
+                             "exactly once")
+
+    # per workload: count, placements, latency percentiles
+    rows = {}
+    for wl, payload, t_sub, f in futs[:n_stream]:
+        key = f"{wl}@{payload['density']}" if wl == "spmv" else wl
+        r = rows.setdefault(key, {"n": 0, "accel": 0, "host": 0,
+                                 "shared": 0, "queued": 0, "lat": []})
+        r["n"] += 1
+        r[f.meta["lane"]] += 1
+        r["queued"] += f.meta["queued_behind_s"] > 1e-9
+        r["lat"].append(done_at[id(f)] - t_sub)
+    placed = {}
+    for wl, r in sorted(rows.items()):
+        p50, p95, p99 = (float(v) for v in
+                         np.percentile(r["lat"], [50, 95, 99]))
+        print(f"serve stream {wl}: n={r['n']} dedicated_accel={r['accel']} "
+              f"dedicated_host={r['host']} shared={r['shared']} "
+              f"queued={r['queued']} "
+              f"latency_ms p50={p50 * 1e3!r} p95={p95 * 1e3!r} "
+              f"p99={p99 * 1e3!r}")
+    lat_all = [done_at[id(f)] - t for _, _, t, f in futs[:n_stream]]
+    p50, p95, p99 = (float(v) for v in np.percentile(lat_all, [50, 95, 99]))
+    print(f"serve stream: {n_stream} requests in {SERVE_SECONDS} s at "
+          f"{SERVE_RATE}/s, then a burst of {len(futs) - n_stream}; wall_s="
+          f"{wall!r} throughput={len(futs) / wall!r} req/s latency_ms "
+          f"p50={p50 * 1e3!r} p95={p95 * 1e3!r} p99={p99 * 1e3!r} "
+          f"executions dedicated={st.dedicated} shared={st.shared} "
+          f"batches={st.batches} merged={st.merged_batches} "
+          f"probe_runs={st.probe_runs}")
+    print(f"serve stream: gpu_busy_s={gpu_busy!r} of wall_s={wall!r}: "
+          f"gpu_idle_share={1.0 - gpu_busy / wall!r} (torch.profiler, "
+          f"CUDA activity only, on for the whole run)")
+    print(f"serve stream: audit lane_utilization="
+          f"{audit['lane_utilization']} resource_efficiency="
+          f"{audit['resource_efficiency']!r} open={audit['open_decisions']}")
+    for key, v in sorted(audit["placements"].items()):
+        print(f"serve stream: audit {key}: n={v['n']} mean_abs_err_s="
+              f"{v['mean_abs_err_s']!r} mean_rel_err={v['mean_rel_err']!r}")
+    print(f"serve stream: launches={counts}")
+    print("serve stream: launches by entry: " + ", ".join(
+        f"{e}={entries[e]}" for e in SERVE_ENTRY.values()))
+    for name, entry in SERVE_ENTRY.items():
+        if counts[name] <= 0 or entries[entry] != counts[name]:
+            raise AssertionError(
+                f"serve stream: {name} launched {counts[name]} times, "
+                f"{entries[entry]} through {entry}")
+
+    # every value against its check; dedicated runs on their group's
+    # device; merged rows bitwise their member's solo run on that device
+    for wl, payload, _, f in futs:
+        try:
+            value = f.result(timeout=0)
+        except RequestRejected as e:
+            raise AssertionError(f"serve stream {wl}: {e}") from None
+        lane, dev = f.meta["lane"], f.meta.get("device")
+        if isinstance(value, torch.Tensor):
+            want = groups["accel"] if lane == "shared" else dev
+            if str(value.device) != want:
+                raise AssertionError(f"serve stream {wl}: ran on {lane}, "
+                                     f"value on {value.device}")
+        if "seed" not in payload:
+            ref, tol = refs[(wl, payload["density"]) if wl == "spmv"
+                            else wl]
+            got = _as_cpu(torch, value)
+            if tol == 0:
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"serve stream {wl}: value differs")
+            else:
+                torch.testing.assert_close(
+                    got, ref, rtol=tol, atol=tol,
+                    msg=lambda m: f"serve stream {wl}: {m}")
+        if f.meta.get("merged"):
+            with lane_device(dev):
+                solo = adapters.make_request(wl, payload).run_one()
+            if not torch.equal(_as_cpu(torch, value), _as_cpu(torch, solo)):
+                raise AssertionError(f"serve stream {wl} seed "
+                                     f"{payload.get('seed')}: demuxed row "
+                                     f"differs from the solo run on {dev}")
+    for g in ("accel", "host"):
+        n = sum(1 for _, _, _, f in futs if f.meta["lane"] == g)
+        if n == 0:
+            raise AssertionError(f"serve stream: no dedicated execution "
+                                 f"ran on {g}")
+        placed[g] = n
+    merged = {wl for wl, _, _, f in futs if f.meta.get("merged")}
+    print(f"serve stream: every value ok (the hybrid phase's tolerances); "
+          f"dedicated executions accel={placed['accel']} (cuda:0) "
+          f"host={placed['host']} (cpu), each value on its group's device; "
+          f"merged workloads {sorted(merged)}, every demuxed row bitwise "
+          f"its member's solo run_one on the same device", flush=True)
+    return counts
+
+
+def serve_lm_phase(torch, cfg, params):
+    """kimi-k2 (full width, depth 2) served by ``run_stream`` on a
+    scheduler over the accel group alone (a host copy of the weights
+    would be ~40 GB); returns the stream's launch counts."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.hybrid_executor import detect_platform
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import run_stream
+    from repro_torch.serve.serve_step import generate
+    from repro_torch.workloads import requests as adapters
+
+    accel = detect_platform()[0][0]
+    args = SimpleNamespace(batch=LM_BATCH, prompt_len=LM_PROMPT,
+                           new_tokens=LM_NEW, rate=LM_STREAM_RATE,
+                           duration=LM_STREAM_SECONDS, deadline=None,
+                           max_batch=8, window_ms=2.0, continuous=False,
+                           trace=None, stats_json=None)
+    common.reset_launches()
+    out = run_stream(cfg, params, args, groups=[accel])
+    counts, entries = common.launch_counts(), common.entry_counts()
+    # the adapter holds the weights: drop it, so that the phases after
+    # this one get the card's memory back with the weights' last use
+    adapters.unregister(out["workload"])
+    lat = out["latency_s"]
+    import numpy as np
+    p50, p95 = (float(v) for v in np.percentile(lat, [50, 95]))
+    print(f"serve lm: {len(out['tokens'])} requests of batch {LM_BATCH} at "
+          f"{LM_STREAM_RATE}/s for {LM_STREAM_SECONDS} s (+1 warmup): "
+          f"latency_ms p50={p50 * 1e3!r} p95={p95 * 1e3!r} "
+          f"wall_s={out['wall_s']!r} launches={counts}")
+    print("serve lm: launches by entry: " + ", ".join(
+        f"{e}={entries[e]}" for pair in LM_ENTRY.values() for e in pair))
+    for name, (tensor_core, cuda_core) in LM_ENTRY.items():
+        if entries[tensor_core] <= 0 or entries[cuda_core] \
+                or entries[tensor_core] != counts[name]:
+            raise AssertionError(f"serve lm: {name} not all on "
+                                 f"{tensor_core}")
+    if out["rejected"] or not out["tokens"]:
+        raise AssertionError(f"serve lm: {out['rejected']} rejected")
+    # each request's tokens against a solo generate on the same prompt
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen).cuda()
+    solo = generate(cfg, params, prompt, LM_NEW,
+                    cache_len=LM_PROMPT + LM_NEW + 1)
+    for i, toks in enumerate(out["tokens"]):
+        if not torch.equal(toks, solo):
+            raise AssertionError(f"serve lm: request {i}'s tokens differ "
+                                 f"from a solo generate")
+    print(f"serve lm: all {len(out['tokens'])} requests' tokens equal a "
+          f"solo generate on the same prompt", flush=True)
+    return counts
+
+
+def serve_hybrid_phase(torch):
+    """``launch/serve.py --hybrid`` at kimi-k2's reduced() config on the
+    real pair, cold then warm (the warm call plans from the unit times
+    the cold one measured), then ``run_hybrid`` with the rows forced half
+    on each group, so that both groups decode at once in one call and
+    its combine gathers rows from both devices; each against a solo
+    generate on the GPU.  Returns the launch counts of the three calls,
+    each read right after its call and before its checks."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.plain_check import check_tokens, greedy_with_gaps
+
+    argv = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "64",
+            "--new-tokens", "16"]
+    solo = serve.main(argv).cpu()
+    # main's own weights and prompt, for the forced call and the margin
+    # rule's gaps
+    cfg = registry.get(LM_ARCH).reduced()
+    params = model_zoo.init(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                           device="cuda")
+    calls = (("cold", lambda: serve.main(argv + ["--hybrid"])),
+             ("warm", lambda: serve.main(argv + ["--hybrid"])),
+             ("forced", lambda: serve.run_hybrid(cfg, params, prompt, 16,
+                                                 plan_override=[2, 2])))
+    counts, gaps, host_rows = {}, None, 0
+    for label, call in calls:
+        common.reset_launches()
+        ws = call()
+        for name, n in common.launch_counts().items():
+            counts[name] = counts.get(name, 0) + n
+        split = {g: ws.trace.group_units.get(g, 0)
+                 for g in ("accel", "host")}
+        print(f"serve hybrid {label}: split={split} plan={ws.plan.units} "
+              f"mode={ws.result.mode} {ws.result.row()}")
+        rows_of = {}
+        for rec in ws.trace.records:
+            out = ws.trace.outputs[rec.chunk.seq]
+            want = "cpu" if rec.group == "host" else "cuda:0"
+            if str(out.device) != want:
+                raise AssertionError(f"serve hybrid {label}: {rec.group}'s "
+                                     f"rows ran on {out.device}")
+            for b in range(rec.chunk.start,
+                           rec.chunk.start + rec.chunk.units):
+                rows_of[b] = rec.group
+        host_rows += split["host"]
+        value = ws.value.cpu()
+        if label == "forced" and (split != {"accel": 2, "host": 2}
+                                  or sorted(rows_of) != [0, 1, 2, 3]
+                                  or value.shape[0] != 4):
+            raise AssertionError(f"serve hybrid forced: split {split}, rows "
+                                 f"{rows_of}: not both groups' rows in one "
+                                 f"value")
+        differ = [b for b in range(value.shape[0])
+                  if not torch.equal(value[b], solo[b])]
+        if any(rows_of[b] != "host" for b in differ):
+            raise AssertionError(f"serve hybrid {label}: the GPU's rows "
+                                 f"{differ} differ from a solo generate")
+        if differ:
+            # a CPU row (bf16 on the host) against the card's: the plain
+            # check's margin rule, the gaps from the GPU's greedy run
+            if gaps is None:
+                _, gaps, _ = greedy_with_gaps(cfg, params, prompt, 16)
+            for b, t, gap in check_tokens(value[differ], solo[differ],
+                                          gaps.cpu()[differ]):
+                print(f"serve hybrid {label}: host row {differ[b]} differs "
+                      f"first at token {t}, GPU top-1/top-2 gap {gap!r}")
+        print(f"serve hybrid {label}: the GPU's rows equal a solo generate "
+              f"on the GPU, the host's {len(differ)} differing rows pass "
+              f"the margin rule; each group's rows ran on its own device",
+              flush=True)
+    if host_rows == 0:
+        raise AssertionError("serve hybrid: the host ran no rows")
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         fail("src/repro_torch/csrc not found beside this script: run it "
@@ -2036,7 +2460,17 @@ def main() -> None:
     per_call["lm generate"] = lm_counts
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
     rows += lm_kernel_rows(torch, dev, flush, lm_cfg, lm_params)
-    del flush, lm_params
+    del flush
+    # the serving scheduler: the Table-1 stream on the real pair, the
+    # LM stream on the accel group (the LM phase's weights) and
+    # launch/serve.py --hybrid
+    t0 = time.perf_counter()
+    per_call["serve stream"] = serve_stream_phase(torch, np)
+    per_call["serve lm"] = serve_lm_phase(torch, lm_cfg, lm_params)
+    per_call["serve hybrid"] = serve_hybrid_phase(torch)
+    print(f"serve: phase {time.perf_counter() - t0:.1f} s")
+    del lm_params
+    gc.collect()            # the weights' last holders may sit in cycles
     # after the LM, so that the inputs these phases keep on the card
     # (montecarlo's 512 MB stream among them) stay out of its peak
     per_call["table2"] = table2_phase(torch)

@@ -213,6 +213,10 @@ def child_hybrid(phase: int, tmpdir: str, device=None, size: int = 512,
     res = {}
     if phase == 1:                             # converge + persist
         out = conv.run_hybrid(ex, size=size, ksize=ksize)
+        # persist now: the store defers refinements of known keys (2 s
+        # debounce, else at exit), so a process B started before A's
+        # exit flush would plan from A's first call
+        ex.cache.flush()
         # the split this process plans next, from the calibration it has
         # just persisted: all hits, so nothing is probed or stored
         ex.calibrate(lambda g, n: None, probe_units=1,

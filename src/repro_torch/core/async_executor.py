@@ -46,6 +46,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.common import lane_device
+
 _EPS = 1e-9
 
 
@@ -151,19 +153,23 @@ def primary_device(group) -> Optional[torch.device]:
 
 @contextmanager
 def device_ctx(group, stream: Optional["torch.cuda.Stream"] = None):
-    """Run under the group's primary device: for a GPU, make it the
-    current device and ``stream`` (when given) its current stream; a CPU
-    group needs nothing."""
+    """Run under the group's primary device: it becomes the thread's
+    lane device (``kernels.common.lane_device``); for a GPU also the
+    current device and ``stream`` (when given) its current stream."""
     dev = primary_device(group)
-    if dev is None or dev.type != "cuda":
+    if dev is None:
         yield
         return
-    with torch.cuda.device(dev):
-        if stream is None:
+    with lane_device(dev):
+        if dev.type != "cuda":
             yield
-        else:
-            with torch.cuda.stream(stream):
+            return
+        with torch.cuda.device(dev):
+            if stream is None:
                 yield
+            else:
+                with torch.cuda.stream(stream):
+                    yield
 
 
 class WorkStealingScheduler:

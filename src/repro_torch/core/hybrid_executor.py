@@ -35,6 +35,7 @@ benchmarks can show how far reality is from the model.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -186,10 +187,16 @@ class HybridExecutor:
         # probe executions paid by the last calibrate() (0 = every
         # group seeded from the cache or the model)
         self.last_probe_runs = 0
+        # the serving scheduler shares ONE executor between concurrent
+        # worker threads: calibrate/run_work_shared mutate the tracker
+        # and the warm state, so a work-shared call holds this lock end
+        # to end (re-entrant: calibrate inside a locked call)
+        self._call_lock = threading.RLock()
 
     # ------------------------------------------------------------------
     def calibrate(self, fn: Callable[[str, int], object], probe_units: int,
-                  workload: Optional[str] = None, unit_cost=None) -> None:
+                  workload: Optional[str] = None, unit_cost=None,
+                  probe: bool = True) -> None:
         """Seed per-group throughput for a workload (paper §4.5).
 
         On a cache hit for every group the probe runs are skipped
@@ -214,61 +221,74 @@ class HybridExecutor:
         each group warms its own device.
         ``last_probe_runs`` reports how many groups probed (0 = fully
         cache/model seeded: a fresh process's zero-probe first call).
-        """
-        self.tracker.reset()
-        self._cache_key = workload
-        probe_units = max(int(probe_units), 1)
-        warm = True
-        self.last_probe_runs = 0
-        for g in self.groups:
-            cached = (self.cache.get(workload, g.name, g.slowdown)
-                      if workload else None)
-            if cached is not None:
-                self.tracker.seed(g.name, cached)
-                warm = warm and self.cache.warmed_in_process(
-                    workload, g.name, g.slowdown)
-                continue
-            warm = False
-            uc = (unit_cost.get(g.name)
-                  if isinstance(unit_cost, dict) else unit_cost)
-            if uc is not None:
-                from repro_torch.core import cost_model
-                if cost_model.enabled():
-                    dev = primary_device(g) or torch.device("cpu")
-                    t_unit = cost_model.predict(uc, dev) * g.slowdown
-                    self.tracker.seed(g.name, t_unit)
-                    continue
-            with device_ctx(g):
-                t = measure(lambda: fn(g.name, probe_units), warmup=1,
-                            iters=1)
-            self.last_probe_runs += 1
-            t *= g.slowdown
-            self.tracker.update(g.name, probe_units, t)
-            if workload:
-                self.cache.put(workload, g.name, t / probe_units,
-                               g.slowdown)
-        self._warm = warm
-        self.tracker.mark_planned()
 
-    def plan(self, total_units: int, comm_cost: float = 0.0
-             ) -> work_sharing.WorkPlan:
+        ``probe=False`` forbids probe runs (the serving scheduler's
+        batched executions, where ``fn`` would re-execute a member
+        request): a group with neither a cache entry nor a model prior
+        is left unseeded — the plan starts symmetric and work stealing
+        absorbs the error within the first call.
+        """
+        with self._call_lock:
+            self.tracker.reset()
+            self._cache_key = workload
+            probe_units = max(int(probe_units), 1)
+            warm = True
+            self.last_probe_runs = 0
+            for g in self.groups:
+                cached = (self.cache.get(workload, g.name, g.slowdown)
+                          if workload else None)
+                if cached is not None:
+                    self.tracker.seed(g.name, cached)
+                    warm = warm and self.cache.warmed_in_process(
+                        workload, g.name, g.slowdown)
+                    continue
+                warm = False
+                uc = (unit_cost.get(g.name)
+                      if isinstance(unit_cost, dict) else unit_cost)
+                if uc is not None:
+                    from repro_torch.core import cost_model
+                    if cost_model.enabled():
+                        dev = primary_device(g) or torch.device("cpu")
+                        t_unit = cost_model.predict(uc, dev) * g.slowdown
+                        self.tracker.seed(g.name, t_unit)
+                        continue
+                if not probe:
+                    continue
+                with device_ctx(g):
+                    t = measure(lambda: fn(g.name, probe_units), warmup=1,
+                                iters=1)
+                self.last_probe_runs += 1
+                t *= g.slowdown
+                self.tracker.update(g.name, probe_units, t)
+                if workload:
+                    self.cache.put(workload, g.name, t / probe_units,
+                                   g.slowdown)
+            self._warm = warm
+            self.tracker.mark_planned()
+
+    def plan(self, total_units: int, comm_cost: float = 0.0,
+             min_units: int = 0) -> work_sharing.WorkPlan:
         thr = self.tracker.throughputs([g.name for g in self.groups])
-        return work_sharing.plan_work(total_units, thr, comm_cost)
+        return work_sharing.plan_work(total_units, thr, comm_cost,
+                                      min_units=min_units)
 
     # ------------------------------------------------------------------
     def run_work_shared(self, workload: str, total_units: int,
                         run_share: Callable[[str, int, int], object],
                         combine: Callable[[Sequence[object]], object],
                         comm_cost: float = 0.0,
+                        warmup: bool = True,
                         plan_override: Optional[Sequence[int]] = None,
                         sequential: bool = False,
-                        whole_shares: bool = False) -> WorkSharedOutput:
+                        whole_shares: bool = False,
+                        min_units: int = 0) -> WorkSharedOutput:
         """Execute one work-shared computation, chunk-pipelined.
 
         run_share(group_name, start_unit, n_units) -> share output
         combine(outputs) -> final value (outputs arrive in unit order)
-        The first call after a cold calibration runs one untimed warmup
-        chunk per chunk shape and group.
+        warmup: allow the untimed warmup chunks (one per chunk shape
+        and group) that the first call after a cold calibration runs;
+        False when every unit must execute exactly once.
         plan_override: force this exact unit split (benchmark sweeps);
         also disables stealing so the forced split is honored.
         sequential: run the no-overlap baseline loop instead (each
@@ -276,9 +296,25 @@ class HybridExecutor:
         whole_shares: execute each group's share as ONE chunk (implies
         no stealing) — for suitability splits whose per-chunk shapes
         are data-dependent, where a uniform chunk grid would make
-        every chunk a fresh packing in the timed path."""
+        every chunk a fresh packing in the timed path.
+        min_units: floor every live group's share (the serving
+        scheduler's batched executions pass 1, so a group with a stale
+        slow estimate keeps measuring — and correcting — itself).
+
+        Thread-safe: the whole call holds the executor's re-entrant
+        call lock, so the serving scheduler can share one executor
+        between its workers."""
+        with self._call_lock:
+            return self._run_work_shared_locked(
+                workload, total_units, run_share, combine, comm_cost,
+                warmup, plan_override, sequential, whole_shares, min_units)
+
+    def _run_work_shared_locked(self, workload, total_units, run_share,
+                                combine, comm_cost, warmup, plan_override,
+                                sequential, whole_shares,
+                                min_units) -> WorkSharedOutput:
         cache_key = self._cache_key or workload
-        plan = self.plan(total_units, comm_cost)
+        plan = self.plan(total_units, comm_cost, min_units=min_units)
         chunk_units = max(total_units // self.n_chunks, 1)
         names = [g.name for g in self.groups]
         if plan_override is not None:
@@ -299,7 +335,7 @@ class HybridExecutor:
                                               chunk_units))
             units = self.cache.sticky_plan(
                 plan_key, total_units, chunk_units, assigned0)
-        do_warmup = not self._warm
+        do_warmup = warmup and not self._warm
 
         mode = ("sequential" if sequential
                 else "virtual" if self.simulated else "threads")

@@ -32,6 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -96,6 +97,33 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run on "
                            "the CPU")
     return torch.device("cuda", 0)
+
+
+_LANE = threading.local()
+
+
+@contextmanager
+def lane_device(device):
+    """Make ``device`` the calling thread's lane device for the block.
+
+    A serving request's ``run_one()`` / ``run_share()`` take no device:
+    they read ``current_device()``, which the thread that runs them set
+    (a scheduler lane, an executor's group worker).  Torch tensors do
+    not follow a default device the way uncommitted JAX arrays follow
+    ``jax.default_device``, so the lane says where to compute."""
+    prev = getattr(_LANE, "device", None)
+    _LANE.device = torch.device(device)
+    try:
+        yield
+    finally:
+        _LANE.device = prev
+
+
+def current_device() -> torch.device:
+    """The calling thread's lane device; outside any lane, the first
+    GPU (raises when there is none)."""
+    dev = getattr(_LANE, "device", None)
+    return dev if dev is not None else resolve_device(None)
 
 
 def to_device(arrays, device=None):

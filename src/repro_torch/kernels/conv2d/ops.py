@@ -16,12 +16,16 @@ pin one.  The config space:
 With the search off (``REPRO_AUTOTUNE=0``) a CUDA tensor runs
 ``DEFAULT_CONFIG`` (the route's kernel) and a CPU tensor
 ``CPU_CONFIG`` (the shift-add), what each ran before autotuning.
+
+``conv2d_batched`` is the batched form of ``torch_conv``, for the
+serving merge hook.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.cost_model import CostTerms
 from repro_torch.kernels.autotune import (Config, autotune, bucket,
@@ -83,6 +87,31 @@ def _torch_conv(img: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     torch.backends.cudnn.allow_tf32 = False
     try:
         return conv2d_ref(img, w)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def conv2d_batched(imgs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """Batched 'same' 2-D correlation: ``(R, H, W)`` images against
+    ``(R, K, K)`` per-row filters -> ``(R, H, W)``, one grouped
+    ``F.conv2d`` call for the whole stack (TF32 off on a GPU).
+
+    The batched form of the ``torch_conv`` impl only: the serving merge
+    hook engages where the solo path resolves to ``torch_conv`` and the
+    device is one on which this call is bitwise equal to it row by row
+    (``workloads/requests.py``, ``CONV_MERGE_DEVICES``)."""
+    R, _, _ = imgs.shape
+    K = ws.shape[-1]
+
+    def run():
+        return F.conv2d(imgs[None].float(), ws[:, None].float(),
+                        padding=K // 2, groups=R)[0].to(imgs.dtype)
+
+    if not imgs.is_cuda or not torch.backends.cudnn.allow_tf32:
+        return run()
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return run()
     finally:
         torch.backends.cudnn.allow_tf32 = True
 

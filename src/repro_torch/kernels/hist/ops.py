@@ -19,8 +19,7 @@ every one):
 
 With the search off a CUDA tensor runs ``DEFAULT_CONFIG`` (the route's
 kernel) and a CPU tensor ``CPU_CONFIG`` (``torch.bincount``).
-``histogram_rows`` (the serving merge hook) comes with the serving
-port.
+``histogram_rows`` serves the serving merge hook.
 """
 from __future__ import annotations
 
@@ -103,3 +102,21 @@ def histogram(x: torch.Tensor, n_bins: int, *,
     if config is None:
         config = tuned_config(xf, n_bins)
     return _hist_cfg(xf, n_bins, config)
+
+
+def histogram_rows(x2d: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Row-wise batched histogram: ``(R, n)`` int keys in ``[0, n_bins)``
+    -> ``(R, n_bins)`` int32 counts, one ``torch.bincount`` over
+    row-offset keys for the whole stack (keys outside the range count
+    nowhere, as in ``histogram``: they go to a dropped last bin).
+
+    The serving merge hook stacks same-bucket histogram requests into
+    this one call.  Counts are exact integer sums, so every row equals
+    the solo ``histogram`` of that row bit for bit whatever impl the
+    solo path runs, on either device."""
+    R = x2d.shape[0]
+    x = x2d.long()
+    offs = torch.arange(R, device=x.device)[:, None] * n_bins
+    keys = torch.where((x >= 0) & (x < n_bins), x + offs, R * n_bins)
+    counts = torch.bincount(keys.reshape(-1), minlength=R * n_bins + 1)
+    return counts[:R * n_bins].reshape(R, n_bins).to(torch.int32)

@@ -2,7 +2,7 @@
 
 Sampling (``temperature`` / ``key``) and the continuous engine's
 slot-batched ``make_slot_step`` are not ported yet: they come with the
-serving-core slice (ROADMAP queue 1, item 7).
+continuous engine (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 

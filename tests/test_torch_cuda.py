@@ -1055,3 +1055,197 @@ def test_flash_attention_ops_at_batch_one_on_gpu(gpu, dtype):
         assert common.entry_counts()[cfg["entry"]] == 1
         torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
                                    atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the serving scheduler on the real pair (the GPU and the CPU)
+# ---------------------------------------------------------------------------
+SERVE_PAYLOADS = {
+    "conv": {"size": 96, "ksize": 5},
+    "hist": {"n": 1 << 14, "n_bins": 64},
+    "spmv": {"n": 256, "density": 0.02},
+    "bilateral": {"size": 64, "radius": 3},
+    "sort": {"n": 1 << 12},
+    "attention": {"batch": 4, "seq": 64, "heads": 4, "kv_heads": 2,
+                  "dim": 32},
+}
+SERVE_TOL = {"conv": 2e-4, "hist": 0, "spmv": 2e-5, "bilateral": 1e-3,
+             "sort": 0, "attention": 2e-5}
+
+
+def _serve_value(v):
+    return v.cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.asarray(v))
+
+
+@pytest.fixture
+def fresh_serving():
+    from repro_torch.core.calibration import clear_calibration_cache
+    from repro_torch.serve import scheduler as sched_mod
+    clear_calibration_cache("torch:cuda")
+    yield
+    sched_mod.shutdown_all(timeout=10.0)
+    clear_calibration_cache("torch:cuda")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("wl", sorted(SERVE_PAYLOADS))
+def test_scheduler_serves_workload_on_each_group_and_shared_on_gpu(
+        gpu, fresh_serving, wl):
+    """Each kernel-backed workload served dedicated on the accel group
+    (cuda:0), dedicated on the host group (the CPU) and work-shared
+    across both: every value equals the solo run on the CPU lane at the
+    kernel tests' tolerance, and lies on the device that ran it."""
+    from repro_torch.core.calibration import clear_calibration_cache
+    from repro_torch.kernels.common import lane_device
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.workloads import requests as adapters
+
+    payload = SERVE_PAYLOADS[wl]
+    with lane_device("cpu"):
+        want = _serve_value(adapters.make_request(wl, payload).run_one())
+    spec = adapters.make_request(wl, payload)
+    tol = SERVE_TOL[wl]
+    for lane in ("accel", "host", "shared"):
+        if lane == "shared":
+            s = Scheduler(max_batch=1, batch_window_s=0.0,
+                          split_overhead_s=0.0, shared_span_factor=1.0)
+            # equal unit times (and no measurement of the runs before):
+            # an idle pair splits the request
+            clear_calibration_cache("torch:cuda")
+            for g in ("accel", "host"):
+                s._ex.cache.put(spec.workload, g, 1e-3)
+        else:
+            s = Scheduler(policy="fifo", fifo_group=lane, max_batch=1,
+                          batch_window_s=0.0, shared_span_factor=1.0)
+        with s:
+            f = s.submit(wl, payload)
+            value = f.result(timeout=120)
+        assert f.meta["lane"] == lane
+        if isinstance(value, torch.Tensor):
+            assert str(value.device) == ("cpu" if lane == "host"
+                                         else "cuda:0")
+        got = _serve_value(value)
+        if tol == 0:
+            assert torch.equal(got, want), lane
+        else:
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        assert s.stats.completed == 1 and s.stats.in_flight == 0
+
+
+@pytest.mark.needs_cuda
+def test_dedicated_lanes_run_on_their_devices_on_gpu(gpu, fresh_serving):
+    """The accel lane runs under cuda:0 on a stream of its own, the host
+    lane under the CPU."""
+    from dataclasses import dataclass
+
+    from repro_torch.kernels.common import current_device
+    from repro_torch.serve.scheduler import Scheduler
+
+    @dataclass(frozen=True)
+    class Spec:
+        workload: str
+        total_units: int
+        run_one: object
+        run_share: object
+        combine: object
+        bucket: str = "b"
+
+    def factory(workload, payload):
+        def run_one():
+            dev = current_device()
+            stream = (torch.cuda.current_stream(dev)
+                      if dev.type == "cuda" else None)
+            return str(dev), stream
+        return Spec(workload, 1, run_one, lambda g, s, k: run_one(),
+                    lambda o: o[0])
+
+    for lane, want in (("accel", "cuda:0"), ("host", "cpu")):
+        with Scheduler(policy="fifo", fifo_group=lane, spec_factory=factory,
+                       batch_window_s=0.0, shared_span_factor=1.0) as s:
+            dev, stream = s.submit("wl", None).result(timeout=30)
+        assert dev == want
+        if lane == "accel":
+            assert stream != torch.cuda.default_stream(gpu)
+
+
+MERGE_CASES = {
+    "hist": lambda s: {"n": 1 << 14, "n_bins": 64, "seed": s},
+    "sort": lambda s: {"n": 1 << 12, "seed": s},
+    "attention": lambda s: {"batch": 2, "seq": 64, "heads": 4,
+                            "kv_heads": 2, "dim": 32, "seed": s},
+    "raycast": lambda s: {"n_rays": 512, "d": 16, "seed": 0},
+}
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("wl", sorted(MERGE_CASES))
+@pytest.mark.parametrize("n", [3, 8])
+def test_merged_rows_bitwise_solo_on_gpu(gpu, wl, n):
+    """On the card a merged batch (pow2-padded) demuxes every member
+    bitwise equal to its solo run_one on the card."""
+    from repro_torch.kernels.common import lane_device
+    from repro_torch.workloads import requests as adapters
+
+    specs = [adapters.make_request(wl, MERGE_CASES[wl](s))
+             for s in range(n)]
+    with lane_device(gpu):
+        merged = specs[0].merge(specs)
+        assert merged is not None
+        batched = merged.spec.run_one()
+        for i, s in enumerate(specs):
+            assert torch.equal(_serve_value(merged.demux(batched, i)),
+                               _serve_value(s.run_one())), i
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("R,H,K", [(2, 64, 5), (8, 512, 15), (8, 96, 3),
+                                   (3, 33, 7), (5, 100, 9), (16, 64, 1)])
+def test_conv2d_batched_bitwise_solo_torch_conv_on_gpu(gpu, R, H, K):
+    """The conv merge's batched call is bitwise the solo ``torch_conv``
+    per row on the card (``CONV_MERGE_DEVICES``)."""
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+
+    g = torch.Generator(device=gpu).manual_seed(R * H + K)
+    imgs = torch.randn(R, H, H, device=gpu, generator=g)
+    ws = torch.randn(R, K, K, device=gpu, generator=g)
+    out = conv_ops.conv2d_batched(imgs, ws)
+    for i in range(R):
+        assert torch.equal(out[i], conv2d_ref(imgs[i], ws[i])), i
+
+
+@pytest.mark.needs_cuda
+def test_conv_merge_engages_only_on_torch_conv_on_gpu(gpu, monkeypatch):
+    """With the search off the solo conv is K1, so the merge declines;
+    with ``torch_conv`` pinned it engages and every row is bitwise the
+    member's solo run."""
+    from repro_torch.kernels.common import lane_device
+    from repro_torch.workloads import requests as adapters
+
+    def specs(seeds):
+        # fresh seeds a case: each request's inputs keep their resolved
+        # config per device
+        return [adapters.make_request("conv", {"size": 96, "ksize": 5,
+                                               "seed": s}) for s in seeds]
+
+    with lane_device(gpu):
+        first = specs(range(5))
+        assert first[0].merge(first) is None
+    monkeypatch.setenv("REPRO_TUNE_PIN_CONV2D", '{"impl": "torch_conv"}')
+    pinned = specs(range(5, 10))
+    with lane_device(gpu):
+        merged = pinned[0].merge(pinned)
+        assert merged is not None
+        batched = merged.spec.run_one()
+        for i, s in enumerate(pinned):
+            assert torch.equal(merged.demux(batched, i), s.run_one())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("n_bins", [1, 64, 256, 4096])
+def test_histogram_rows_exact_on_gpu(gpu, n_bins):
+    x = torch.randint(-3, n_bins + 3, (6, 5000), dtype=torch.int32,
+                      device=gpu)
+    out = hist_ops.histogram_rows(x, n_bins)
+    for i in range(6):
+        assert torch.equal(out[i], hist_ref(x[i], n_bins))
