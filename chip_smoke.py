@@ -66,6 +66,26 @@
    cores), and ``launch/serve.py --hybrid`` at kimi-k2's reduced config
    cold and warm (the GPU's rows equal to a solo ``generate`` on the
    GPU, the host's on the CPU copy, held to it under the margin rule).
+   Then the continuous-batching engine, the LM's weights still on the
+   card: (a) a scheduler over the accel group serves a burst of 8
+   batch-1 requests (1024 + 16 tokens) through the slot-batched step
+   (4 slots), then ``run_stream(continuous=True)`` at 1 req/s for 6 s:
+   steps, joins, evictions, the most live rows, per-step time by live
+   rows, each request's time to first token and latency, K7/K8
+   launches per prefill and per step by C entry (all on the tensor
+   cores), the GPU's idle share in one profiled step, the slot-batched
+   step's logits against B = 1 steps (teacher-forced), each request's
+   tokens against a solo ``generate`` at B = 1; (b) the same burst with
+   the engine off (``REPRO_SERVE_CONTINUOUS=0``); (c) kimi-k2
+   ``reduced()`` on the real pair, cold: the engine's lanes from the
+   priors with no probe, tokens against a solo ``generate`` on the
+   decode lane's device (the margin rule where prefill and decode ran
+   on two devices); (d) the listrank, lbm and dither steppers on the
+   real pair, each value bitwise its solo ``run_one`` on the decode
+   lane's device; (e) ``launch/serve.py --stream --continuous``.
+   Also K7's f32 entry at the serve stream's attention shape (4 x 1024,
+   64/8 heads, d = 112, causal) against its plain version and SDPA in
+   f32, its launches per serve-stream run.
 7. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
    workloads at both of the paper's ratios (10 and 3.9) on the
    simulated pair on the GPU (``force_simulated``), a cold pass (its
@@ -133,7 +153,7 @@ PEAK_BYTES = 3.35e12             # HBM3 bytes/s
 # 2^-8, a few ulp at |out| <= 1) and f32 sums in another order
 TOL = {"conv2d": 2e-4, "hist": 0, "spmv_ell": 2e-5, "probe_add_one": 0,
        "sort_bitonic": 0, "bilateral": 1e-3, "flash_attention": 1e-2,
-       "gmm": 1e-2}
+       "gmm": 1e-2, "flash_attention_f32": 2e-5}
 SOURCE = {
     "conv2d": ("src/repro_torch/csrc/conv2d.cu",
                "src/repro/kernels/conv2d/conv2d.py:41"),
@@ -153,6 +173,12 @@ SOURCE = {
     "gmm": ("src/repro_torch/csrc/gmm_wgmma.cu",
             "src/repro/kernels/gmm/gmm.py:40"),
 }
+# the CUDA-core entries of K7 and K8 live in the first versions' sources
+ENTRY_SOURCE = {
+    **dict.fromkeys(("flash_attention_fma_f32", "flash_attention_fma_bf16"),
+                    "src/repro_torch/csrc/flash_attention.cu"),
+    **dict.fromkeys(("gmm_fma_f32", "gmm_fma_bf16"),
+                    "src/repro_torch/csrc/gmm.cu")}
 # the C entry points the LM's main path must launch (bf16, aligned rows):
 # the tensor-core routes of K7 and K8, never their CUDA-core routes
 LM_ENTRY = {"flash_attention": ("flash_attention_wgmma_bf16",
@@ -195,6 +221,12 @@ TABLE1_SIZES = {
 CHUNKED = ("spgemm", "raycast", "montecarlo", "concomp")
 LM_ARCH, LM_LAYERS = "kimi-k2-1t-a32b", 2
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 16
+# the serve stream's attention requests, K7's f32 row
+SERVE_ATTN = dict(B=4, T=1024, H=64, Kv=8, d=112)
+K7_F32_ENTRY = "flash_attention_fma_f32"
+# launches by C entry of the phases that record them (the f32 row's
+# launches per serve-stream run)
+PHASE_ENTRIES = {}
 
 
 def fail(msg: str) -> None:
@@ -283,10 +315,12 @@ def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms, shape,
                peak_flops=PEAK_F32_FLOPS, entry=None):
     """The JSON row of one kernel at the main path's shape; the bound is
     the larger of its bytes over HBM's rate and its operations over
-    ``peak_flops``.  ``entry``: the C entry point (route) that ran."""
+    ``peak_flops``.  ``entry``: the C entry point (route) that ran; its
+    source file is the row's."""
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     src, rep = SOURCE[name]
+    src = ENTRY_SOURCE.get(entry, src)
     r = {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": None, "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
@@ -1959,6 +1993,34 @@ def lm_kernel_rows(torch, dev, flush, cfg, params):
         PEAK_BF16_FLOPS, entry=flash_route(q.dtype, d))]
     del q, k, v, q4, k4, v4
 
+    # K7's f32 entry (the CUDA-core kernel, flash_attention_fma_f32) at
+    # the serve stream's attention requests: 4 x 1024, 64/8 heads,
+    # d = 112, causal, f32; SDPA in f32 (TF32 is off, main())
+    B, T = SERVE_ATTN["B"], SERVE_ATTN["T"]
+    H, Kv, d = SERVE_ATTN["H"], SERVE_ATTN["Kv"], SERVE_ATTN["d"]
+    q, k, v = (randn(B * n, T, d).float() for n in (H, Kv, Kv))
+    out = flash_attention_cuda(q, k, v, True)
+    tol = TOL["flash_attention_f32"]
+    ref = attn_plain(q, k, v, True)
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol, msg=lambda m:
+                               f"flash_attention f32 serve stream: {m}")
+    err = (out - ref).abs().max().item()
+    del out, ref
+    q4, k4, v4 = (t.view(B, -1, T, d) for t in (q, k, v))
+    pairs = T * (T + 1) // 2
+    rows.append(kernel_row(
+        "flash_attention", err,
+        time_ms(torch, lambda: flash_attention_cuda(q, k, v, True), flush),
+        time_ms(torch, lambda: attn_plain(q, k, v, True), flush, iters=10),
+        4.0 * B * H * pairs * d, 4.0 * (2 * B * H + 2 * B * Kv) * T * d,
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), flush),
+        f"serve stream: BH={B * H}/{B * Kv} T=S={T} d={d} causal f32",
+        PEAK_F32_FLOPS, entry=flash_route(q.dtype, d)))
+    if rows[-1]["entry"] != K7_F32_ENTRY:
+        raise AssertionError(f"K7 f32 went to {rows[-1]['entry']}")
+    del q, k, v, q4, k4, v4
+
     # the model path calls K7 through ops.flash_attention, which takes
     # (B, T, H, d) and copies q/k/v to (B*H, T, d) first
     # (_flatten_gqa): its time beside the kernel's is the copies' cost
@@ -2174,6 +2236,7 @@ def serve_stream_phase(torch, np):
                          if e.device_type == DeviceType.CUDA
                          and not getattr(e, "is_user_annotation", False)])
     counts, entries = common.launch_counts(), common.entry_counts()
+    PHASE_ENTRIES["serve stream"] = entries
     st = sched.stats
     audit = sched.audit.summary()
     sched.shutdown()
@@ -2422,6 +2485,435 @@ def serve_hybrid_phase(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# continuous phase: the continuous-batching engine
+# ---------------------------------------------------------------------------
+CB_SLOTS, CB_BURST = 4, 8
+# the reduced-config parts: kimi-k2 reduced() on the real pair
+CB_R_PROMPT, CB_R_BURST = 64, 4
+# the iteration steppers' requests on the real pair (the table1 phase's
+# sizes), four a workload
+CB_ITER = (("listrank", {"n": 1 << 22}),
+           ("lbm", {"d": 128, "n_steps": 4}),
+           ("dither", {"h": 1024, "w": 1024}))
+CB_ITER_N = 4
+
+
+def _entry_delta(before, after):
+    return {e: after[e] - before.get(e, 0) for e in after
+            if after[e] != before.get(e, 0)}
+
+
+def _instrument(torch, common, stepper, engine_of):
+    """Wrap the stepper's prefill and step: each call's time (both end
+    synchronised) and its launches by C entry.  The engine's lane locks
+    serialise its prefills and steps on one group, so the global counts'
+    deltas are each call's own.  While ``rec["profile_at"]`` is set, the
+    first step with that many live rows runs under ``profile_window`` on
+    the engine's step thread instead (kept out of the record) and clears
+    it.  Returns the record."""
+    rec = {"prefill": [], "step": [], "profile_at": None}
+    prefill, step = stepper.prefill, stepper.step
+
+    def timed_prefill(spec):
+        e0, t0 = common.entry_counts(), time.perf_counter()
+        out = prefill(spec)
+        rec["prefill"].append((time.perf_counter() - t0,
+                               _entry_delta(e0, common.entry_counts())))
+        return out
+
+    def timed_step(state):
+        eng = engine_of()
+        n_live = eng.live_rows if eng is not None else None
+        if n_live is not None and n_live == rec["profile_at"]:
+            rec["profile_at"] = None
+            out = []
+            profile_window(torch, f"serve continuous engine step profiled "
+                           f"(live={n_live})", lambda: out.append(step(state)))
+            return out[0]
+        e0, t0 = common.entry_counts(), time.perf_counter()
+        out = step(state)
+        rec["step"].append((n_live, time.perf_counter() - t0,
+                            _entry_delta(e0, common.entry_counts())))
+        return out
+
+    stepper.prefill, stepper.step = timed_prefill, timed_step
+    return rec
+
+
+def _burst(sched, wl, payloads, timeout=600):
+    """Submit every payload at once; returns [(future, submit time on
+    the scheduler's clock, latency s)] once all resolved."""
+    done_at = {}
+
+    def stamp(f):
+        done_at[id(f)] = sched.clock()
+
+    subs = []
+    for p in payloads:
+        t = sched.clock()
+        f = sched.submit(wl, p)
+        f.add_done_callback(stamp)
+        subs.append((f, t))
+    for f, _ in subs:
+        f.result(timeout=timeout)
+    return [(f, t, done_at[id(f)] - t) for f, t in subs]
+
+
+def _lat_line(np, lat):
+    p50, p95 = (float(v) for v in np.percentile(lat, [50, 95]))
+    return f"latency_ms p50={p50 * 1e3!r} p95={p95 * 1e3!r}"
+
+
+def _check_lm_entries(label, counts, entries):
+    for name, (tensor_core, cuda_core) in LM_ENTRY.items():
+        if entries.get(tensor_core, 0) <= 0 or entries.get(cuda_core, 0) \
+                or entries[tensor_core] != counts[name]:
+            raise AssertionError(f"{label}: {name} not all on {tensor_core} "
+                                 f"({entries})")
+
+
+def _slot_vs_solo(torch, cfg, params, stepper, prompts, n_new):
+    """The slot-batched step against B = 1 steps on the same rows,
+    teacher-forced with each row's solo tokens: each row prefilled
+    alone, the rows stacked into the stepper's slots, then every step
+    one ``decode_step`` over the slots at per-row positions.  Returns
+    (max |logits diff|, argmax disagreements, steps x rows)."""
+    from repro_torch.kernels.common import lane_device
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.continuous import _tree_map
+    from repro_torch.serve.serve_step import greedy_logits
+
+    dev = torch.device("cuda", 0)
+    solo_lg = []
+    with torch.inference_mode(), lane_device(dev):
+        state = stepper.init_slots()
+        for b, prompt in enumerate(prompts):
+            rows = list(greedy_logits(cfg, params, prompt, n_new,
+                                      cache_len=stepper.cache_len))
+            solo_lg.append(torch.stack(rows, 1)[0])      # (n_new + 1, V)
+            first, caches = stepper._prefill(prompt)
+            stepper.insert(state, b, (_tree_map(lambda a: a[0], caches),
+                                      first[0]))
+        n = len(prompts)
+        toks = torch.stack([lg.argmax(-1) for lg in solo_lg])   # (n, T)
+        pos = torch.full((CB_SLOTS,), stepper.prompt_len, dtype=torch.long,
+                         device=dev)
+        tok = torch.zeros((CB_SLOTS, 1), dtype=torch.int32, device=dev)
+        worst, flips = 0.0, 0
+        for t in range(n_new):
+            tok[:n, 0] = toks[:, t].to(torch.int32)
+            logits, state["caches"] = model_zoo.decode_step(
+                cfg, params, tok, state["caches"], pos)
+            lg = logits[:n, 0].float()
+            want = torch.stack([s[t + 1] for s in solo_lg])
+            worst = max(worst, (lg - want).abs().max().item())
+            flips += int((lg.argmax(-1) != want.argmax(-1)).sum())
+            pos += 1
+    return worst, flips, n_new * len(prompts)
+
+
+def serve_continuous_phase(torch, np, cfg, params):
+    """The continuous-batching engine: (a) kimi-k2 at full width, depth
+    2 (the LM phase's weights) on a scheduler over the accel group: a
+    burst of batch-1 requests stacked into the slot-batched step, then
+    ``run_stream(continuous=True)``; (b) the same burst with the engine
+    off; (c) kimi-k2 reduced() on the real pair, cold; (d) the
+    listrank, lbm and dither steppers on the real pair; (e)
+    ``launch/serve.py --continuous``.  Returns the launch counts of (a):
+    the burst's (set to 0 after the warm-up request, read right after
+    the burst) plus the stream's (set to 0 just before it, read right
+    after it), no check's among them."""
+    import contextlib
+    import io
+    from types import SimpleNamespace
+
+    from repro_torch.configs import registry
+    from repro_torch.core.hybrid_executor import detect_platform
+    from repro_torch.kernels import common
+    from repro_torch.kernels.common import lane_device
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import run_stream
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.plain_check import check_tokens, greedy_with_gaps
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.serve_step import generate
+    from repro_torch.workloads import requests as adapters
+
+    dev = torch.device("cuda", 0)
+    accel = detect_platform()[0][0]
+    t_phase = time.perf_counter()
+
+    # (a) full width on the accel group
+    wl = adapters.make_continuous_lm_adapter(
+        cfg, params, prompt_len=LM_PROMPT, new_tokens=LM_NEW,
+        n_slots=CB_SLOTS, warm_background=False, name="serve-lm-cb/chip")
+    stepper = adapters.make_request(wl, {"batch": 1}).stepper
+    sched = Scheduler(groups=[accel], max_batch=CB_BURST,
+                      batch_window_s=0.002)
+    rec = _instrument(torch, common, stepper,
+                      lambda: next(iter(sched._engines.values()), None))
+    t0 = time.perf_counter()
+    sched.submit(wl, {"batch": 1, "seed": 100}).result(timeout=600)
+    print(f"serve continuous: warm-up request (engine built, S={CB_SLOTS} "
+          f"slots) {time.perf_counter() - t0!r} s", flush=True)
+    rec["prefill"].clear()
+    rec["step"].clear()
+    common.reset_launches()
+    st0 = sched.stats.snapshot()
+    t0 = time.perf_counter()
+    burst = _burst(sched, wl, [{"batch": 1, "seed": s}
+                               for s in range(CB_BURST)])
+    wall = time.perf_counter() - t0
+    counts, entries = common.launch_counts(), common.entry_counts()
+    st1 = sched.stats.snapshot()
+    eng = next(iter(sched._engines.values()))
+    snap = eng.snapshot()
+    d = {k: st1[k] - st0[k] for k in ("engine_steps", "engine_joins",
+                                      "engine_evictions")}
+    lat = [x for _, _, x in burst]
+    ttft = [f.meta["t_first_token"] - t for f, t, _ in burst]
+    print(f"serve continuous burst: {CB_BURST} requests of batch 1 x "
+          f"{LM_PROMPT} + {LM_NEW}: engine_steps={d['engine_steps']} "
+          f"engine_joins={d['engine_joins']} engine_evictions="
+          f"{d['engine_evictions']} max_live={snap['max_live']} "
+          f"{_lat_line(np, lat)} ttft_ms p50="
+          f"{float(np.median(ttft)) * 1e3!r} p95="
+          f"{float(np.percentile(ttft, 95)) * 1e3!r} wall_s={wall!r} "
+          f"tokens_per_s={CB_BURST * (LM_NEW + 1) / wall!r}", flush=True)
+    for (f, t, x), tt in zip(burst, ttft):
+        print(f"serve continuous burst: request ttft_ms={tt * 1e3!r} "
+              f"latency_ms={x * 1e3!r}")
+    if not 0 < d["engine_steps"] < CB_BURST * LM_NEW:
+        raise AssertionError(f"serve continuous: {d['engine_steps']} steps "
+                             f"for {CB_BURST} x {LM_NEW} row-steps: the "
+                             f"rows did not stack")
+    if d["engine_joins"] != CB_BURST or d["engine_evictions"] != CB_BURST:
+        raise AssertionError(f"serve continuous: joins/evictions {d}")
+    by_live = {}
+    for n_live, s_, _ in rec["step"]:
+        by_live.setdefault(n_live, []).append(s_)
+    for n_live in sorted(by_live):
+        print(f"serve continuous step: live={n_live} "
+              f"median_step_s={statistics.median(by_live[n_live])!r} "
+              f"n={len(by_live[n_live])}")
+    pre_s = [s_ for s_, _ in rec["prefill"]]
+    print(f"serve continuous prefill: B=1 median_s="
+          f"{statistics.median(pre_s)!r} n={len(pre_s)} launches by entry "
+          f"{rec['prefill'][0][1]}; a step: {rec['step'][-1][2]}")
+    want = {"flash_attention": cfg.n_layers, "gmm": 0}
+    m = cfg.moe
+    want["gmm"] = 3 * (1 + m.overflow_passes) * (cfg.n_layers
+                                                 - m.n_dense_layers)
+    tc = {n: LM_ENTRY[n][0] for n in LM_ENTRY}
+    for _, ent in rec["prefill"]:
+        if ent.get(tc["flash_attention"], 0) != want["flash_attention"] \
+                or ent.get(tc["gmm"], 0) != want["gmm"] \
+                or any(ent.get(LM_ENTRY[n][1], 0) for n in LM_ENTRY):
+            raise AssertionError(f"serve continuous: a prefill launched "
+                                 f"{ent}, predicted {want} on "
+                                 f"{list(tc.values())}")
+    for _, _, ent in rec["step"]:
+        if ent.get(tc["gmm"], 0) != want["gmm"] \
+                or any(ent.get(LM_ENTRY[n][1], 0) for n in LM_ENTRY):
+            raise AssertionError(f"serve continuous: a step launched {ent}, "
+                                 f"predicted {want['gmm']} on {tc['gmm']}")
+    # the GPU's idle share in one of the engine's own steps with every
+    # slot live, on its step thread, in a second burst after the counts
+    rec["profile_at"] = CB_SLOTS
+    _burst(sched, wl, [{"batch": 1, "seed": CB_BURST + s}
+                       for s in range(CB_BURST)])
+    sched.shutdown()
+    if rec["profile_at"] is not None:
+        raise AssertionError(f"serve continuous: no step with {CB_SLOTS} "
+                             f"live rows to profile")
+    # each request's tokens against a solo generate of its prompt at B=1
+    solos = []
+    for s_, (f, _, _) in enumerate(burst):
+        prompt = adapters.make_request(wl, {"batch": 1, "seed": s_}) \
+            .arrays[0].on(dev)[0]
+        solos.append(generate(cfg, params, prompt, LM_NEW,
+                              cache_len=stepper.cache_len).cpu())
+        got = f.result()
+        if got.shape != solos[-1].shape or got.dtype != solos[-1].dtype \
+                or not torch.equal(got, solos[-1]):
+            raise AssertionError(f"serve continuous: request {s_} gave "
+                                 f"{tuple(got.shape)} {got.dtype}, not its "
+                                 f"solo generate's tokens")
+    # the slot-batched step's numerics against B = 1 steps, teacher-forced
+    prompts = [adapters.make_request(wl, {"batch": 1, "seed": s_})
+               .arrays[0].on(dev)[0] for s_ in range(CB_SLOTS)]
+    worst, flips, n_cmp = _slot_vs_solo(torch, cfg, params, stepper,
+                                        prompts, LM_NEW)
+    print(f"serve continuous: {CB_SLOTS}-slot step vs B=1 steps "
+          f"(teacher-forced, {n_cmp} row-steps): max |logits diff| "
+          f"{worst!r}, argmax disagreements {flips}", flush=True)
+    if worst != 0.0 or flips:
+        raise AssertionError("serve continuous: the slot-batched step is "
+                             "not bitwise the B=1 step")
+    print(f"serve continuous: all {CB_BURST} requests' tokens equal a "
+          f"solo generate of their prompt at B=1", flush=True)
+
+    # the stream: run_stream(continuous=True) at the serve lm phase's rate
+    args = SimpleNamespace(batch=1, prompt_len=LM_PROMPT, new_tokens=LM_NEW,
+                           rate=LM_STREAM_RATE, duration=LM_STREAM_SECONDS,
+                           deadline=None, max_batch=8, window_ms=2.0,
+                           continuous=True, trace=None, stats_json=None)
+    common.reset_launches()
+    out = run_stream(cfg, params, args, groups=[accel])
+    for have, now in ((counts, common.launch_counts()),
+                      (entries, common.entry_counts())):
+        for k, n in now.items():
+            have[k] = have.get(k, 0) + n
+    adapters.unregister(out["workload"])
+    if out["rejected"] or not out["tokens"]:
+        raise AssertionError(f"serve continuous stream: {out['rejected']} "
+                             f"rejected")
+    st = out["stats"]
+    print(f"serve continuous stream: {len(out['tokens'])} requests at "
+          f"{LM_STREAM_RATE}/s for {LM_STREAM_SECONDS} s (+1 warmup): "
+          f"{_lat_line(np, out['latency_s'])} ttft_ms p50="
+          f"{float(np.median(out['ttft_s'])) * 1e3!r} engine_steps="
+          f"{st.engine_steps} joins={st.engine_joins}", flush=True)
+    print(f"serve continuous: launches={counts} by entry: " + ", ".join(
+        f"{e}={entries[e]}" for pair in LM_ENTRY.values() for e in pair))
+    _check_lm_entries("serve continuous", counts, entries)
+
+    # (b) the same burst with the engine off: the monolithic route
+    os.environ["REPRO_SERVE_CONTINUOUS"] = "0"
+    try:
+        sched = Scheduler(groups=[accel], max_batch=CB_BURST,
+                          batch_window_s=0.002)
+        sched.submit(wl, {"batch": 1, "seed": 100}).result(timeout=600)
+        t0 = time.perf_counter()
+        off = _burst(sched, wl, [{"batch": 1, "seed": s}
+                                 for s in range(CB_BURST)])
+        wall_off = time.perf_counter() - t0
+        if sched.stats.engine_steps:
+            raise AssertionError("serve continuous off: the engine ran")
+        sched.shutdown()
+    finally:
+        os.environ.pop("REPRO_SERVE_CONTINUOUS", None)
+    for s_, (f, _, _) in enumerate(off):
+        if not torch.equal(f.result().cpu(), solos[s_]):
+            raise AssertionError(f"serve continuous off: request {s_} "
+                                 f"differs from its solo generate")
+    print(f"serve continuous off (REPRO_SERVE_CONTINUOUS=0): {CB_BURST} "
+          f"requests: {_lat_line(np, [x for _, _, x in off])} wall_s="
+          f"{wall_off!r}; engine on: {_lat_line(np, lat)} wall_s={wall!r}",
+          flush=True)
+    adapters.unregister(wl)
+    del stepper, burst, off
+    gc.collect()
+
+    # (c) kimi-k2 reduced() on the real pair, a fresh scheduler
+    cfg_r = registry.get(LM_ARCH).reduced()
+    params_r = model_zoo.init(cfg_r, 0, device=dev)
+    sched = Scheduler()
+    devs = [g.devices[0] for g in sched.groups]
+    wl_r = adapters.make_continuous_lm_adapter(
+        cfg_r, params_r, prompt_len=CB_R_PROMPT, new_tokens=LM_NEW,
+        n_slots=CB_SLOTS, warm_background=False, name="serve-lm-cb/chip-r",
+        devices=devs)
+    stepper_r = adapters.make_request(wl_r, {"batch": 1}).stepper
+    stepper_r.warm()
+    res = _burst(sched, wl_r, [{"batch": 1, "seed": s}
+                               for s in range(CB_R_BURST)])
+    snap = sched.stats.snapshot()
+    plan = sched.engine_placements[wl_r]
+    sched.shutdown()
+    by_name = {g.name: g.devices[0] for g in sched.groups}
+    pre_dev, dec_dev = by_name[plan.prefill_group], \
+        by_name[plan.decode_group]
+    print(f"serve continuous reduced: engine_placements prefill="
+          f"{plan.prefill_group} ({pre_dev}) decode={plan.decode_group} "
+          f"({dec_dev}) est_prefill_s={plan.est_prefill_s!r} est_decode_s="
+          f"{plan.est_decode_s!r} probe_runs={snap['probe_runs']} "
+          f"engine_steps={snap['engine_steps']}", flush=True)
+    if snap["probe_runs"] != 0:
+        raise AssertionError("serve continuous reduced: a probe ran")
+    w_dec = stepper_r.weights(dec_dev)
+    n_differ = 0
+    for s_, (f, _, _) in enumerate(res):
+        prompt = adapters.make_request(wl_r, {"batch": 1, "seed": s_}) \
+            .arrays[0].on(dec_dev)[0]
+        solo = generate(cfg_r, w_dec, prompt, LM_NEW,
+                        cache_len=stepper_r.cache_len).cpu()
+        got = f.result()
+        if torch.equal(got, solo):
+            continue
+        if str(pre_dev) == str(dec_dev):
+            raise AssertionError(f"serve continuous reduced: request {s_} "
+                                 f"differs from a solo generate on "
+                                 f"{dec_dev}")
+        # prefill on one device, decode on the other: the margin rule
+        _, gaps, _ = greedy_with_gaps(cfg_r, w_dec, prompt, LM_NEW)
+        for _, t, gap in check_tokens(got, solo, gaps.cpu()):
+            print(f"serve continuous reduced: request {s_} differs first "
+                  f"at token {t}, solo top-1/top-2 gap {gap!r} (prefill on "
+                  f"{pre_dev}, decode on {dec_dev})")
+        n_differ += 1
+    print(f"serve continuous reduced: {CB_R_BURST - n_differ} of "
+          f"{CB_R_BURST} requests equal a solo generate on {dec_dev}, the "
+          f"rest pass the margin rule", flush=True)
+    adapters.unregister(wl_r)
+
+    # (d) the iteration steppers on the real pair
+    sched = Scheduler()
+    for name, payload in CB_ITER:
+        t0 = time.perf_counter()
+        res = _burst(sched, name, [dict(payload, seed=s, continuous=True)
+                                   for s in range(CB_ITER_N)])
+        wall_i = time.perf_counter() - t0
+        spec = adapters.make_request(name, dict(payload, continuous=True))
+        plan = sched.engine_placements[spec.stepper.workload]
+        eng = sched._engines[id(spec.stepper)].snapshot()
+        dec_dev = {g.name: g.devices[0] for g in sched.groups}[
+            plan.decode_group]
+        for s_, (f, _, _) in enumerate(res):
+            with lane_device(dec_dev):
+                solo = adapters.make_request(
+                    name, dict(payload, seed=s_)).run_one()
+            got = f.result()
+            if isinstance(solo, torch.Tensor):
+                ok = (got.device == solo.device
+                      and torch.equal(got, solo))
+            else:
+                ok = np.array_equal(got, solo)
+            if not ok:
+                raise AssertionError(f"serve continuous {name}: request "
+                                     f"{s_} differs from its solo run_one "
+                                     f"on {dec_dev}")
+        print(f"serve continuous {name}: {CB_ITER_N} requests {payload} "
+              f"prefill={plan.prefill_group} decode={plan.decode_group} "
+              f"({dec_dev}) steps={eng['steps']} max_live={eng['max_live']} "
+              f"wall_s={wall_i!r} {_lat_line(np, [x for _, _, x in res])}; "
+              f"every value bitwise its solo run_one on {dec_dev}",
+              flush=True)
+    sched.shutdown()
+
+    # (e) launch/serve.py --continuous at kimi-k2's reduced config
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(["--arch", LM_ARCH, "--batch", "1", "--prompt-len",
+                          str(CB_R_PROMPT), "--new-tokens", str(LM_NEW),
+                          "--stream", "--continuous", "--rate", "4",
+                          "--duration", "2"])
+    text = buf.getvalue()
+    print("\n".join(f"serve continuous cli: {ln}"
+                    for ln in text.splitlines()))
+    engine_lines = [ln for ln in text.splitlines()
+                    if ln.startswith("engine ") and " prefill=" in ln
+                    and " decode=" in ln]
+    if out["rejected"] or not out["tokens"] or len(engine_lines) != 1:
+        raise AssertionError("serve continuous cli: no engine line or a "
+                             "rejected request")
+    adapters.unregister(out["workload"])
+    print(f"serve continuous: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         fail("src/repro_torch/csrc not found beside this script: run it "
@@ -2469,6 +2961,10 @@ def main() -> None:
     per_call["serve lm"] = serve_lm_phase(torch, lm_cfg, lm_params)
     per_call["serve hybrid"] = serve_hybrid_phase(torch)
     print(f"serve: phase {time.perf_counter() - t0:.1f} s")
+    # the continuous-batching engine, the LM phase's weights still on
+    # the card
+    per_call["serve continuous"] = serve_continuous_phase(
+        torch, np, lm_cfg, lm_params)
     del lm_params
     gc.collect()            # the weights' last holders may sit in cycles
     # after the LM, so that the inputs these phases keep on the card
@@ -2478,6 +2974,9 @@ def main() -> None:
     table1_phase(torch, np)
     per_call.update(autotune_phase(torch, np, dev))
     for r in rows:
+        if r.get("entry") == K7_F32_ENTRY:
+            r["launches_per_serve_stream"] = \
+                PHASE_ENTRIES["serve stream"][K7_F32_ENTRY]
         if r["name"] in LM_ENTRY:
             r["launches_per_prefill"] = lm_per["prefill"][r["name"]]
             r["launches_per_decode_step"] = \

@@ -22,4 +22,4 @@ from repro_torch.core.async_executor import (AsyncChunkExecutor, Chunk,
 from repro_torch.core.hybrid_executor import (DeviceGroup, HybridExecutor,
                                               WorkSharedOutput,
                                               detect_platform)
-from repro_torch.core.metrics import EWMA, HybridResult
+from repro_torch.core.metrics import EWMA, HybridResult, summarize

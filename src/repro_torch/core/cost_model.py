@@ -257,3 +257,25 @@ def reset_profiles() -> None:
 def predict(terms: CostTerms, device) -> float:
     """Convenience: ``device``'s profile time estimate."""
     return get_profile(device).predict(terms)
+
+
+# ---------------------------------------------------------------------------
+# LM serving priors (prefill/decode disaggregation)
+# ---------------------------------------------------------------------------
+def lm_prefill_terms(n_params: float, prompt_len: int) -> CostTerms:
+    """Prior for one LM prefill of ``prompt_len`` tokens: ~2*params
+    matmul FLOPs per token against one streaming read of the weights —
+    compute-bound for any non-trivial prompt, which is why
+    disaggregation wants prefill on the fastest-matmul lane."""
+    return CostTerms(flops=2.0 * n_params * max(int(prompt_len), 1),
+                     bytes=4.0 * n_params, compute="matmul")
+
+
+def lm_decode_terms(n_params: float, n_steps: int = 1) -> CostTerms:
+    """Prior for ``n_steps`` single-token decode steps: each step does
+    ~2*params FLOPs but re-reads every weight, so flops ~= bytes/2 and
+    the roofline lands on the bandwidth leg — the decode-roofline prior
+    ``launch/serve.py`` uses for hybrid LM placement."""
+    n = max(int(n_steps), 1)
+    return CostTerms(flops=2.0 * n_params * n, bytes=4.0 * n_params * n,
+                     steps=n, compute="matmul")

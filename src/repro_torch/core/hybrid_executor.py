@@ -157,11 +157,13 @@ class HybridExecutor:
 
     With no ``groups``, ``detect_platform`` builds them: the GPU and
     the CPU, or — when ``device="cpu"`` or ``force_simulated`` — the
-    simulated pair."""
+    simulated pair.  ``steal=False`` turns work stealing off for every
+    call (a call with a ``plan_override`` never steals)."""
 
     def __init__(self, groups: Optional[List[DeviceGroup]] = None,
                  simulated_ratio: float = 4.0, n_chunks: int = 16,
-                 device=None, force_simulated: bool = False):
+                 steal: bool = True, device=None,
+                 force_simulated: bool = False):
         if groups is None:
             groups, sim = detect_platform(simulated_ratio, device,
                                           force_simulated)
@@ -171,6 +173,7 @@ class HybridExecutor:
             self.simulated = len(set(devs)) < len(devs)
         self.groups = groups
         self.n_chunks = max(int(n_chunks), 1)
+        self.steal = bool(steal)
         self.tracker = ThroughputTracker([g.name for g in groups])
         # persisted entries are keyed by platform: a GPU pair never
         # shares unit times with a CPU-simulated pair, nor with the
@@ -339,7 +342,7 @@ class HybridExecutor:
 
         mode = ("sequential" if sequential
                 else "virtual" if self.simulated else "threads")
-        steal = plan_override is None
+        steal = self.steal and plan_override is None
         # what the scheduler will actually allow (mirrors
         # AsyncChunkExecutor.run)
         eff_steal = steal and mode != "sequential" and not whole_shares

@@ -17,7 +17,7 @@ import os
 import threading
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 
 def _pctl_window(default: int = 256) -> int:
@@ -352,3 +352,13 @@ class HybridResult:
                 f"hybrid={self.hybrid_time * 1e3:9.3f}ms  "
                 f"best-single[{self.best_single_device}]="
                 f"{self.best_single * 1e3:9.3f}ms" + extra)
+
+
+def summarize(results: Sequence[HybridResult]) -> str:
+    lines = [r.row() for r in results]
+    if results:
+        avg_gain = sum(r.gain for r in results) / len(results)
+        avg_eff = sum(r.resource_efficiency for r in results) / len(results)
+        lines.append(f"{'MEAN':8s} gain={100 * avg_gain:6.1f}%  "
+                     f"eff={100 * avg_eff:5.1f}%")
+    return "\n".join(lines)

@@ -26,8 +26,12 @@ scheduler's load telemetry.  ``--trace out.json`` exports the run's
 span timeline as Chrome trace-event JSON; ``--stats-json stats.json``
 dumps the final ``ServeStats`` snapshot and the placement audit.
 
-``--continuous`` (the continuous-batching engine) is not ported yet
-(ROADMAP queue 1, item 5) and raises.
+``--stream --continuous`` serves the trace through the
+continuous-batching engine instead (``serve/continuous.py``): requests
+of one shape stack into one slot-batched decode step, joining and
+leaving at step boundaries; the engine's prefill and decode lanes are
+printed (``engine <workload>: prefill=<group> decode=<group>``) and
+kept in ``--stats-json``.
 """
 from __future__ import annotations
 
@@ -63,17 +67,20 @@ def run_stream(cfg, params, args, groups=None, device=None) -> dict:
     from repro_torch.serve.scheduler import Scheduler
     from repro_torch.workloads import requests as adapters
 
-    if args.continuous:
-        raise NotImplementedError(
-            "--continuous needs the continuous-batching engine, which is "
-            "not ported yet (ROADMAP queue 1, item 5)")
     sched = Scheduler(groups=groups, device=device,
                       max_batch=args.max_batch,
                       batch_window_s=args.window_ms / 1e3)
     devs = [g.devices[0] for g in sched.groups if g.devices]
-    wl = adapters.make_lm_adapter(cfg, params, prompt_len=args.prompt_len,
-                                  new_tokens=args.new_tokens,
-                                  devices=devs)
+    if args.continuous:
+        wl = adapters.make_continuous_lm_adapter(
+            cfg, params, prompt_len=args.prompt_len,
+            new_tokens=args.new_tokens, devices=devs)
+        adapters.wait_precompiled(timeout=600)
+    else:
+        wl = adapters.make_lm_adapter(cfg, params,
+                                      prompt_len=args.prompt_len,
+                                      new_tokens=args.new_tokens,
+                                      devices=devs)
     try:
         # one warmup request outside the measured trace: first-use
         # costs (kernel build, allocator growth) are a property of the
@@ -98,24 +105,43 @@ def run_stream(cfg, params, args, groups=None, device=None) -> dict:
             # futures in submission order would record trace position,
             # not latency
             f.add_done_callback(stamp)
-            futs.append((time.perf_counter(), f))
+            # the engine's token stamps are on the scheduler's clock
+            futs.append((time.perf_counter(), sched.clock(), f))
             # open-loop: the NEXT arrival does not wait for this result
             time.sleep(float(rng.exponential(1.0 / max(args.rate, 1e-6))))
-        lat, tokens, rejected = [], [], 0
-        for t_sub, f in futs:
+        lat, tokens, rejected, decode, ttft = [], [], 0, [], []
+        for t_sub, t_sub_clock, f in futs:
             try:
                 tokens.append(f.result(timeout=600))
                 lat.append(done_at[id(f)] - t_sub)
             except RequestRejected:
                 rejected += 1
+                continue
+            # the engine stamps the first token after prefill and the
+            # last at the final eviction: completion-callback time alone
+            # can't separate queueing from decode
+            t_ft = f.meta.get("t_first_token")
+            t_lt = f.meta.get("t_last_token")
+            if t_ft is not None:
+                ttft.append(t_ft - t_sub_clock)
+                if t_lt is not None:
+                    decode.append(t_lt - t_ft)
         wall = (max(done_at.values()) - t0) if done_at \
             else time.perf_counter() - t0
+        placements = dict(sched.engine_placements)
         audit = sched.audit.summary()
     finally:
         sched.shutdown()
     if args.stats_json:
         doc = {"arch": cfg.name, "stats": sched.stats.snapshot(),
-               "placement_audit": audit}
+               "placement_audit": audit,
+               "engine_placements": {
+                   name: {"prefill": plan.prefill_group,
+                          "decode": plan.decode_group,
+                          "disaggregated": plan.disaggregated,
+                          "est_prefill_s": plan.est_prefill_s,
+                          "est_decode_s": plan.est_decode_s}
+                   for name, plan in placements.items()}}
         with open(args.stats_json, "w") as fh:
             json.dump(doc, fh, indent=2, default=str)
         print(f"stats json -> {args.stats_json}")
@@ -131,6 +157,15 @@ def run_stream(cfg, params, args, groups=None, device=None) -> dict:
         print(f"latency p50={pct[50] * 1e3:.1f}ms "
               f"p95={pct[95] * 1e3:.1f}ms p99={pct[99] * 1e3:.1f}ms "
               f"throughput={len(lat) / wall:.2f} req/s")
+    dpct = _percentiles(decode)
+    if dpct:
+        print(f"decode p50={dpct[50] * 1e3:.1f}ms "
+              f"p95={dpct[95] * 1e3:.1f}ms p99={dpct[99] * 1e3:.1f}ms "
+              f"({len(decode)} stamped)")
+    for name, plan in placements.items():
+        print(f"engine {name}: prefill={plan.prefill_group} "
+              f"decode={plan.decode_group} "
+              f"disaggregated={plan.disaggregated}")
     # fault-tolerance counters: a clean run prints all zeros, which is
     # itself the signal — nonzero retries/failovers under a healthy
     # fleet mean a lane is flapping
@@ -143,7 +178,8 @@ def run_stream(cfg, params, args, groups=None, device=None) -> dict:
     print(st.row())
     return {"workload": wl, "latency_s": lat, "tokens": tokens,
             "rejected": rejected, "wall_s": wall, "stats": st,
-            "audit": audit}
+            "audit": audit, "ttft_s": ttft, "decode_s": decode,
+            "engine_placements": placements}
 
 
 def run_hybrid(cfg, params, prompt, new_tokens: int, device=None,
@@ -154,7 +190,7 @@ def run_hybrid(cfg, params, prompt, new_tokens: int, device=None,
     ``plan_override`` forces the rows per group, in the groups' order.
     Returns the executor's ``WorkSharedOutput``; the tokens gather on
     the first group's device."""
-    from repro_torch.core.cost_model import CostTerms
+    from repro_torch.core.cost_model import lm_decode_terms
     from repro_torch.core.hybrid_executor import HybridExecutor
     from repro_torch.models.param import count_params
     from repro_torch.workloads.requests import params_to
@@ -177,13 +213,10 @@ def run_hybrid(cfg, params, prompt, new_tokens: int, device=None,
     def combine(outs):
         return sync(torch.cat([o.to(dest) for o in outs], dim=0))
 
-    # the decode roofline prior (the reference's lm_decode_terms): a
-    # cold cache plans with zero probe runs, so no group decodes rows
-    # it does not own inside the timed path
-    n_params = count_params(params)
-    n = new_tokens + 1
-    unit_cost = CostTerms(flops=2.0 * n_params * n, bytes=4.0 * n_params * n,
-                          steps=n, compute="matmul")
+    # the decode roofline prior: a cold cache plans with zero probe
+    # runs, so no group decodes rows it does not own inside the timed
+    # path
+    unit_cost = lm_decode_terms(count_params(params), new_tokens + 1)
     ex.calibrate(lambda g, k: run_share(g, 0, k),
                  probe_units=max(B // 2, 1), workload=f"serve/{cfg.name}",
                  unit_cost=unit_cost)
@@ -204,8 +237,7 @@ def main(argv=None, device=None):
                     help="drive the serving scheduler with a synthetic "
                          "open-loop arrival trace")
     ap.add_argument("--continuous", action="store_true",
-                    help="--stream via the continuous-batching engine "
-                         "(not ported yet: raises)")
+                    help="--stream via the continuous-batching engine")
     ap.add_argument("--rate", type=float, default=4.0,
                     help="--stream mean arrival rate, requests/s")
     ap.add_argument("--duration", type=float, default=5.0,

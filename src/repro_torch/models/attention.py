@@ -130,31 +130,44 @@ def init_cache(cfg, batch: int, max_len: int, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_decode(params, x, cfg, cache, position: int, *, sin=None,
+def attention_decode(params, x, cfg, cache, position, *, sin=None,
                      cos=None):
-    """One-token decode. x: (B, 1, d). position: int (tokens so far).
+    """One-token decode. x: (B, 1, d). position: an int (tokens so far,
+    the same for every row) or a (B,) int tensor (each row's own: the
+    continuous engine's slots sit at different decode depths).
 
     Full-attention caches index by absolute position; sliding-window caches
     are ring buffers indexed by ``position % window``.  The new K/V are
     written into the cache's slot in place (the reference returns an
-    updated copy); the returned cache is the same dict.
+    updated copy); the returned cache is the same dict.  A row at a
+    tensor position computes what it computes alone at that ``int``.
     """
     B, T, _ = x.shape
     if T != 1:
         raise ValueError(f"attention_decode: one token a step, got T={T}")
     q, k, v = _qkv(params, x, cfg, sin, cos)
     L = cache["k"].shape[1]
-    slot = position % L if cfg.sliding_window > 0 else position
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
     idx = torch.arange(L, device=x.device)
+    if isinstance(position, int):
+        slot = position % L if cfg.sliding_window > 0 else position
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        pos = position
+    else:
+        pos = position.to(x.device)
+        slot = pos % L if cfg.sliding_window > 0 else pos
+        rows = torch.arange(B, device=x.device)
+        cache["k"][rows, slot] = k[:, 0]
+        cache["v"][rows, slot] = v[:, 0]
+        pos, idx = pos[:, None], idx[None, :]
     if cfg.sliding_window:
         # ring buffer: until it wraps only slots <= position are valid;
         # once full, every slot holds one of the last L tokens.
-        valid = ((position < L) & (idx <= position)) | (position >= L)
+        valid = ((pos < L) & (idx <= pos)) | (pos >= L)
     else:
-        valid = idx <= position
-    mask = valid[None, None, None, None, :]
+        valid = idx <= pos
+    # (1 or B, 1, 1, 1, L): one mask for every row, or one a row
+    mask = valid.reshape(-1, 1, 1, 1, L)
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
     y = linear(params["wo"], out.reshape(B, 1, -1))
     return y, cache

@@ -68,9 +68,9 @@ def apply_layer(params, x, cfg, use_moe: bool, *, sin, cos,
 
 
 def apply_layer_decode(params, x, cfg, use_moe: bool, cache,
-                       position: int, *, sin, cos):
-    """Single-token layer step. Returns (x, cache, aux); the cache is
-    updated in place."""
+                       position, *, sin, cos):
+    """Single-token layer step at an int or a (B,) tensor of per-row
+    positions. Returns (x, cache, aux); the cache is updated in place."""
     h = norm(params["norm1"], x, cfg)
     y, cache = attn_mod.attention_decode(params["mix"], h, cfg, cache,
                                          position, sin=sin, cos=cos)
@@ -139,7 +139,7 @@ def apply_stack(params, x, cfg, *, sin, cos, make_cache_len: int = 0):
     return x, caches, aux
 
 
-def apply_stack_decode(params, x, cfg, caches, position: int, *, sin, cos):
+def apply_stack_decode(params, x, cfg, caches, position, *, sin, cos):
     """Returns (x, caches, aux); the caches are updated in place."""
     moe_flags, _ = group_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -28,7 +28,7 @@ def _check_ported(cfg: ArchConfig) -> None:
     else:
         return
     raise NotImplementedError(f"{cfg.name}: {what} not ported yet "
-                              f"(ROADMAP queue 1, item 8)")
+                              f"(ROADMAP queue 1, item 6)")
 
 
 def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> Any:
@@ -64,8 +64,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                                  resolve_device(device))
 
 
-def decode_step(cfg: ArchConfig, params, token, caches, position: int):
-    """One-token decode. Returns (logits, caches); the caches are
-    updated in place."""
+def decode_step(cfg: ArchConfig, params, token, caches, position):
+    """One-token decode at ``position``: an int, or a (B,) int tensor of
+    per-row positions.  Returns (logits, caches); the caches are updated
+    in place."""
     _check_ported(cfg)
     return tf_mod.lm_decode_step(params, token, cfg, caches, position)

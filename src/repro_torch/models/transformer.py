@@ -41,13 +41,20 @@ def init_lm_caches(cfg, batch: int, max_len: int, device):
     return blocks.init_stack_caches(cfg, batch, max_len, device)
 
 
-def lm_decode_step(params, inputs, cfg, caches, position: int):
-    """inputs: (B, 1) token ids; position: int.
+def lm_decode_step(params, inputs, cfg, caches, position):
+    """inputs: (B, 1) token ids; position: an int, or a (B,) int tensor
+    of per-row positions.
 
     Returns (logits (B, 1, V), caches); the caches are updated in place."""
     x = embed(params["embed"], inputs, cfg).to(torch.bfloat16)
-    pos = torch.tensor([position], device=x.device)
-    sin, cos = rope_table(cfg.head_dim_(), 1, cfg.rope_theta, pos)
+    if isinstance(position, int):
+        pos = torch.tensor([position], device=x.device)
+        sin, cos = rope_table(cfg.head_dim_(), 1, cfg.rope_theta, pos)
+    else:
+        # one (1, 1, dh/2) table a row, broadcast over its heads
+        sin, cos = rope_table(cfg.head_dim_(), 1, cfg.rope_theta,
+                              position.to(x.device))
+        sin, cos = sin[:, None, None, :], cos[:, None, None, :]
     x, caches, _ = blocks.apply_stack_decode(params["stack"], x, cfg,
                                              caches, position, sin=sin,
                                              cos=cos)

@@ -40,10 +40,16 @@ group's device (``kernels.common.lane_device``; a GPU lane on a stream
 of its own), which every adapter's ``run_one`` reads to pick that
 device's copy of its inputs: torch tensors follow no default device.
 
-The continuous-batching engine route (a spec's ``stepper``: the decode
-step as the scheduling quantum) is not ported yet (ROADMAP queue 1,
-item 5): the scheduler behaves as the reference's does under
-``REPRO_SERVE_CONTINUOUS=0`` and ``continuous_enabled()`` is False.
+Adapters whose spec carries a ``stepper`` additionally route through
+the **continuous-batching engine** (``serve/continuous.py``): the
+decode step becomes the scheduling quantum, live requests stack into
+one slot-batched call per step, and prefill/decode are disaggregated
+across lanes from ``CostTerms`` priors
+(``placement.plan_disaggregation`` — zero probes on a cold start).  On
+the GPU + CPU pair the two lanes may be two devices; the engine runs
+each phase under its group's device.  ``REPRO_SERVE_CONTINUOUS=0``
+disables the route: stepper specs fall back to their monolithic
+``run_one`` path.
 
 **Fault tolerance** (the layer a heterogeneous placement needs most —
 one sick lane silently poisons every projection built on it):
@@ -67,8 +73,8 @@ one sick lane silently poisons every projection built on it):
 * optional **hedging**: ``submit(..., hedge=True)`` requests get a
   duplicate execution on a second idle lane once the original runs
   past the hedge delay (``REPRO_SERVE_HEDGE_DELAY_S``; default: p99 of
-  recent service times); first result wins, the loser resolves into a
-  no-op.
+  recent service times); first result wins, the loser is cancelled at
+  the next iteration boundary (engine rows) or resolves into a no-op.
 * **brownout degradation**: while any lane is dead, admission sheds
   best-effort submissions (``priority < 0``) with a structured
   rejection and dispatch stops lingering for batch coalescing;
@@ -84,8 +90,9 @@ once) → ``shutdown()`` (drain + join all threads).  Env knobs:
 ``REPRO_SERVE_SPAN_FACTOR`` (pins the otherwise self-probed
 torch-vs-torch cross-lane contention factor),
 ``REPRO_SERVE_SPAN_FACTOR_HOST`` (pins the host-native-vs-torch
-factor — the per-workload-class pricing), ``REPRO_SERVE_STALE_TAU``
-(staleness
+factor — the per-workload-class pricing),
+``REPRO_SERVE_CONTINUOUS`` (step-quantum engine on/off, default on),
+``REPRO_SERVE_STALE_TAU`` (staleness
 decay time constant for placement estimates, seconds; 0 disables),
 ``REPRO_SERVE_EXEC_TIMEOUT_S`` (watchdog floor, default 30),
 ``REPRO_SERVE_MAX_RETRIES`` (retry budget, default 2),
@@ -111,10 +118,12 @@ from repro_torch.core.metrics import ServeStats
 from repro_torch.ft.failure import HeartbeatMonitor, LaneFailure
 from repro_torch.kernels.common import sync_device
 from repro_torch.obs import PlacementAudit, get_recorder, new_trace_id
+from repro_torch.serve import continuous
 from repro_torch.serve.placement import (SHARED, GroupLoad,
                                          PlacementDecision,
                                          deadline_feasible,
-                                         degraded_fraction, plan_placement)
+                                         degraded_fraction,
+                                         plan_disaggregation, plan_placement)
 from repro_torch.serve.request_queue import (SLO_BEST_EFFORT, SLO_LATENCY,
                                              Rejection, Request,
                                              RequestQueue, ServeFuture,
@@ -134,14 +143,14 @@ def shutdown_all(timeout: float = 10.0) -> None:
             s.shutdown(timeout=timeout, abort=True)
         except Exception:
             pass
+    # engines created outside a scheduler (tests drive them directly)
+    continuous.shutdown_all(timeout=timeout)
 
 
 def continuous_enabled() -> bool:
-    """Step-quantum engine routing: off until the continuous-batching
-    engine is ported (ROADMAP queue 1, item 5).  The scheduler then
-    behaves as the reference's does with the engine switched off: a
-    spec's ``run_one`` serves it."""
-    return False
+    """Step-quantum engine routing on/off (REPRO_SERVE_CONTINUOUS)."""
+    return os.environ.get("REPRO_SERVE_CONTINUOUS", "1").lower() not in (
+        "0", "off", "false", "no")
 
 
 def _env_float(name: str, default: float) -> float:
@@ -302,6 +311,9 @@ class _Execution:
     t_dispatch: float = 0.0
     est_span: float = 0.0
     hedge: bool = False              # duplicate launched by the watchdog
+    # lanes whose _urgent count this execution holds (latency-class
+    # deadline work: engines on these lanes yield until it runs)
+    urgent_lanes: tuple = ()
 
     @property
     def n_units(self) -> int:
@@ -445,6 +457,10 @@ class Scheduler:
                                     clock=clock)
         self._active: Dict[str, _Active] = {}  # lane -> running execution
         self._suspect: set = set()             # lanes downed by watchdog
+        # lanes with a dispatched-but-not-yet-running latency-class
+        # deadline execution: continuous engines sharing the lane yield
+        # at their next step boundary instead of re-grabbing the lock
+        self._urgent: Dict[str, int] = {g.name: 0 for g in self.groups}
         self._wd_stop = threading.Event()
         # anti-starvation exploration: a lane whose cached estimate
         # says "slow" never gets traffic, so the estimate never heals —
@@ -458,6 +474,12 @@ class Scheduler:
 
         self._lock = threading.Lock()          # stats + group loads
         self._idle = threading.Condition(self._lock)
+        # continuous-batching engines, one per stepper instance, built
+        # lazily on first routed request (lane assignment recorded in
+        # ``engine_placements`` for observability / cold-start tests)
+        self._engines: Dict[int, continuous.ContinuousEngine] = {}
+        self._engines_lock = threading.Lock()
+        self.engine_placements: Dict[str, object] = {}
         self._loads: Dict[str, GroupLoad] = {
             g.name: GroupLoad(g.name, None) for g in self.groups}
         self._group_locks = {g.name: threading.Lock() for g in self.groups}
@@ -533,6 +555,10 @@ class Scheduler:
         with self._lock:
             self._stopped = True
         self._wd_stop.set()
+        with self._engines_lock:
+            engines = list(self._engines.values())
+        for eng in engines:
+            eng.shutdown(timeout=timeout if timeout is not None else 10.0)
         for lane in self._lanes.values():
             lane.put(None)
         # wake the dispatcher (close() already notified; idempotent)
@@ -670,14 +696,18 @@ class Scheduler:
                 # holding a non-matching request hostage to fill this
                 # batch is head-of-line blocking (measured: a 2 ms
                 # linger per cycle serialized dispatch into the p50 at
-                # high arrival rates).  Brownout (a lane is down) also
-                # skips the linger: the batch window was priced for
-                # full capacity
+                # high arrival rates).  Engine-routed (stepper) specs
+                # never linger — the engine batches at step boundaries,
+                # so waiting here only delays their prefill.  Brownout
+                # (a lane is down) also skips the linger: the batch
+                # window was priced for full capacity
                 if (len(batch) < self.max_batch
                         and self.batch_window_s > 0
                         and not self._queue.closed
                         and len(self._queue) == 0
-                        and not self._brownout()):
+                        and not self._brownout()
+                        and not (continuous_enabled() and getattr(
+                            req.payload, "stepper", None) is not None)):
                     time.sleep(self.batch_window_s)
                     batch += self._queue.pop_matching(
                         req.workload, req.bucket,
@@ -724,6 +754,10 @@ class Scheduler:
                              getattr(r, "_t_q0", t_pop), t_pop, "sched",
                              r.trace_id, workload=r.workload)
         specs = [r.payload for r in batch]
+        if (self.policy == "cost" and continuous_enabled()
+                and getattr(specs[0], "stepper", None) is not None):
+            self._dispatch_engine(batch)
+            return
         n_units = sum(max(int(s.total_units), 1) for s in specs)
         now = self.clock()
         t_p0 = rec.now()
@@ -812,9 +846,17 @@ class Scheduler:
         ex = _Execution([r for r in kept], [r.payload for r in kept],
                         decision, t_dispatch=now,
                         est_span=decision.est_exec_s)
+        if any(r.slo_class == SLO_LATENCY and r.t_deadline is not None
+               for r in kept):
+            # latency-class deadline work headed for these lanes:
+            # engines stepping batch rows there yield at their next
+            # iteration boundary instead of re-taking the lane lock
+            ex.urgent_lanes = tuple(decision.groups)
         with self._lock:
             if len(kept) > 1:
                 self.stats.inc(batches=1, batched_requests=len(kept))
+            for name in ex.urgent_lanes:
+                self._urgent[name] = self._urgent.get(name, 0) + 1
             for name in decision.groups:
                 ld = self._loads[name]
                 ld.busy_until = max(ld.busy_until, now) + ex.est_span
@@ -853,6 +895,130 @@ class Scheduler:
                     queued_behind_s=start - now,
                     alternatives=decision.alternatives)
         return decision
+
+    # -- continuous-batching engine route -------------------------------
+    def _dispatch_engine(self, batch: List[Request]) -> None:
+        """Route stepper-backed requests to their continuous engine:
+        no placement scoring per request (the engine's lanes were
+        chosen once from CostTerms priors), no batching window (rows
+        join the running batch at the next step boundary)."""
+        now = self.clock()
+        try:
+            eng = self._engine_for(batch[0].payload.stepper)
+        except BaseException as e:                 # noqa: BLE001
+            for r in batch:
+                self._engine_reject(r, e)
+            return
+        if eng is None:
+            # a dead-lane window during engine routing must be a
+            # structured rejection, not a dispatcher-crashing
+            # RuntimeError that hangs every queued future
+            for r in batch:
+                if r.reject(Rejection(
+                        "lane_failure", r.workload,
+                        detail="no alive device group for engine")):
+                    self.stats.inc(rejected_failure=1)
+                    with self._idle:
+                        self._idle.notify_all()
+            return
+        if len(batch) > 1:
+            self.stats.inc(batches=1, batched_requests=len(batch))
+        for r in batch:
+            if not eng.submit(r, r.payload, now):
+                if r.reject(Rejection("shutdown", r.workload,
+                                      detail="engine shut down")):
+                    self.stats.inc(rejected_shutdown=1)
+                    with self._idle:
+                        self._idle.notify_all()
+
+    def _engine_for(self, stepper
+                    ) -> Optional[continuous.ContinuousEngine]:
+        """The (lazily built) engine for this stepper, or None when no
+        alive lane exists to place it on (caller rejects)."""
+        key = id(stepper)
+        with self._engines_lock:
+            eng = self._engines.get(key)
+            if eng is not None:
+                return eng
+            plan = self._plan_engine_lanes(stepper)
+            if plan is None:
+                return None
+            pre_g = next(g for g in self.groups
+                         if g.name == plan.prefill_group)
+            dec_g = next(g for g in self.groups
+                         if g.name == plan.decode_group)
+
+            def on_step(n_live):
+                self.stats.inc(engine_steps=1)
+
+            def on_join(k):
+                self.stats.inc(engine_joins=k)
+
+            def on_evict(k):
+                self.stats.inc(engine_evictions=k)
+
+            def on_cancel(k):
+                self.stats.inc(engine_cancellations=k)
+
+            def on_preempt(k):
+                self.stats.inc(engine_preemptions=k)
+
+            # lanes whose urgent (latency-class deadline) dispatches
+            # pause this engine's batch stepping: everything its step
+            # locks cover (all groups on a simulated platform — the
+            # same set _lane_locks serializes)
+            yield_lanes = (sorted(self._group_locks)
+                           if getattr(self._ex, "simulated", False)
+                           else [plan.decode_group])
+
+            def should_yield():
+                with self._lock:
+                    return any(self._urgent.get(n, 0) > 0
+                               for n in yield_lanes)
+
+            eng = continuous.ContinuousEngine(
+                stepper,
+                resolve=self._resolve,
+                reject=self._engine_reject,
+                prefill_locks=self._lane_locks(plan.prefill_group),
+                step_locks=self._lane_locks(plan.decode_group),
+                prefill_group=plan.prefill_group,
+                decode_group=plan.decode_group,
+                prefill_ctx=lambda: self._device_ctx(pre_g),
+                step_ctx=lambda: self._device_ctx(dec_g),
+                should_yield=should_yield,
+                hooks={"on_step": on_step, "on_join": on_join,
+                       "on_evict": on_evict, "on_cancel": on_cancel,
+                       "on_preempt": on_preempt},
+                clock=self.clock)
+            self._engines[key] = eng
+            self.engine_placements[stepper.workload] = plan
+            return eng
+
+    def _plan_engine_lanes(self, stepper):
+        """Phase-to-lane assignment from CostTerms priors only (no
+        probes: a fresh process must place with last_probe_runs == 0).
+        Prefill is compute-bound, decode bandwidth-bound — predict()
+        rates them against each group's device profile, scaled by the
+        group's slowdown.  None when no lane is alive (caller delivers
+        a structured rejection)."""
+        from repro_torch.core import cost_model
+        with self._lock:
+            loads = [GroupLoad(ld.name, None, ld.busy_until, ld.alive)
+                     for ld in self._loads.values()]
+        pre = {g.name: cost_model.predict(stepper.prefill_cost,
+                                          _lane_device(g)) * g.slowdown
+               for g in self.groups}
+        dec = {g.name: cost_model.predict(stepper.decode_cost,
+                                          _lane_device(g)) * g.slowdown
+               for g in self.groups}
+        return plan_disaggregation(loads, pre, dec)
+
+    def _engine_reject(self, req: Request, exc: BaseException) -> None:
+        if req.future._reject(exc):
+            self.stats.inc(failed=1)
+            with self._idle:
+                self._idle.notify_all()
 
     def _unit_time(self, spec, group_name: str) -> Optional[float]:
         """sec/unit estimate for placement: calibration cache first
@@ -951,6 +1117,9 @@ class Scheduler:
         deadline = t0 + max(self.exec_timeout_k * max(ex.est_span, 0.0),
                             self.exec_timeout_s)
         act = _Active(ex, t0, deadline)
+        # the lane locks are held here: the urgent work has its lane,
+        # engines may resume stepping at the next lock handoff
+        self._mark_urgent_done(ex)
         with self._lock:
             self._active[lane_name] = act
         try:
@@ -958,6 +1127,16 @@ class Scheduler:
         finally:
             with self._lock:
                 self._active.pop(lane_name, None)
+
+    def _mark_urgent_done(self, ex: _Execution) -> None:
+        """Release the lanes' urgent counts this execution holds
+        (idempotent: requeue paths and normal execution both call)."""
+        lanes, ex.urgent_lanes = ex.urgent_lanes, ()
+        if not lanes:
+            return
+        with self._lock:
+            for name in lanes:
+                self._urgent[name] = max(self._urgent.get(name, 0) - 1, 0)
 
     def _maybe_rejoin(self, name: str) -> None:
         """A watchdog-suspected lane whose stuck execution finally
@@ -1331,6 +1510,7 @@ class Scheduler:
                     lane_q.put(None)
                     break
                 to_requeue.extend(ex.requests)
+                self._mark_urgent_done(ex)   # it will redispatch fresh
                 with self._lock:
                     ld = self._loads[name]
                     ld.busy_until = max(ld.busy_until - ex.est_span,

@@ -1,8 +1,10 @@
-"""Serving steps: batched prefill + single-token greedy decode.
+"""Serving steps: batched prefill + single-token decode (greedy / sampled),
+and the continuous engine's slot-batched step.
 
-Sampling (``temperature`` / ``key``) and the continuous engine's
-slot-batched ``make_slot_step`` are not ported yet: they come with the
-continuous engine (ROADMAP queue 1, item 5).
+Sampling draws from an explicit ``torch.Generator`` by the Gumbel-max
+rule, as ``jax.random.categorical`` does: the argmax of ``logits / T``
+plus standard Gumbel noise, a draw from ``softmax(logits / T)``.  At
+``temperature=0`` every entry is the greedy path, bitwise.
 """
 from __future__ import annotations
 
@@ -26,17 +28,58 @@ def make_prefill_step(cfg: ArchConfig, *, cache_len: int = 0):
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
-    """serve_step(params, token, caches, position) -> (next_token (B, 1)
-    int32, caches); greedy, the caches updated in place."""
+def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """(B, V) f32 logits -> (B,) int64 next tokens: the argmax at
+    ``temperature=0`` (or with no generator), else a draw from
+    ``softmax(logits / temperature)`` (Gumbel-max, the generator's
+    stream on its own device, then moved to the logits')."""
+    if temperature <= 0.0 or generator is None:
+        return torch.argmax(logits, dim=-1)
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device).to(logits.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits / temperature - torch.log(-torch.log(u)),
+                        dim=-1)
 
-    def serve_step(params, token, caches, position: int):
+
+def make_serve_step(cfg: ArchConfig, *, temperature: float = 0.0):
+    """serve_step(params, token, caches, position[, generator]) ->
+    (next_token (B, 1) int32, caches), the caches updated in place;
+    greedy unless ``temperature > 0`` and a generator is given."""
+
+    def serve_step(params, token, caches, position, generator=None):
         logits, caches = model_zoo.decode_step(cfg, params, token, caches,
                                                position)
-        next_tok = torch.argmax(logits[:, 0].float(), dim=-1)
+        next_tok = sample_tokens(logits[:, 0].float(), temperature,
+                                 generator)
         return next_tok[:, None].to(torch.int32), caches
 
     return serve_step
+
+
+def make_slot_step(cfg: ArchConfig):
+    """Slot-batched decode step for the continuous-batching engine.
+
+    ``slot_step(params, tokens, slot_caches, positions) -> (next_tokens,
+    slot_caches)``: ``tokens`` and ``positions`` are (S,) int tensors,
+    ``slot_caches`` the caches of an S-row prefill.  One batched
+    ``decode_step`` over the S slots, each at its own position, the
+    caches written in place.  Each row computes the math it computes
+    alone (the reference ``vmap``s a B = 1 step; here the batch axis
+    carries the slots and every op is row-independent), which is what
+    keeps join/evict bit-identical to solo decode; dead slots compute
+    garbage that nothing reads."""
+    step = make_serve_step(cfg)
+
+    def slot_step(params, tokens, slot_caches, positions):
+        with torch.inference_mode():
+            nxt, slot_caches = step(params, tokens[:, None], slot_caches,
+                                    positions)
+        return nxt[:, 0], slot_caches
+
+    return slot_step
 
 
 def greedy_logits(cfg: ArchConfig, params, prompt: torch.Tensor,
@@ -60,14 +103,26 @@ def greedy_logits(cfg: ArchConfig, params, prompt: torch.Tensor,
 
 
 def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int, *,
-             cache_len: Optional[int] = None) -> torch.Tensor:
-    """Greedy generation: prefill, then ``n_new`` decode steps.
+             cache_len: Optional[int] = None, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Generation: prefill, then ``n_new`` decode steps, greedy unless
+    ``temperature > 0`` and a generator is given (the first token, the
+    prefill's, is greedy either way, as in the reference).
 
     Returns (B, n_new + 1) int32 tokens: the prefill's argmax, then each
     decode step's, the reference's layout (its scan collects each step's
     input token and appends the last output)."""
+    P = prompt.shape[1]
+    step = make_serve_step(cfg, temperature=temperature)
     with torch.inference_mode():
-        toks = [torch.argmax(lg, dim=-1).to(torch.int32)
-                for lg in greedy_logits(cfg, params, prompt, n_new,
-                                        cache_len=cache_len)]
-        return torch.stack(toks, dim=1)
+        logits, caches = model_zoo.prefill(
+            cfg, params, {"tokens": prompt},
+            cache_len=cache_len or (P + n_new))
+        tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(
+            torch.int32)
+        del logits
+        toks = [tok]
+        for t in range(n_new):
+            tok, caches = step(params, tok, caches, P + t, generator)
+            toks.append(tok)
+        return torch.cat(toks, dim=1)

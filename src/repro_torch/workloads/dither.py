@@ -92,6 +92,76 @@ def fsd_dither(img: torch.Tensor) -> torch.Tensor:
     return out.reshape(H, W)
 
 
+# ---------------------------------------------------------------------------
+# The wavefront one step at a time, over a leading slot axis: the
+# continuous engine's dither stepper.  Each slot carries its image, its
+# error buffer, its output and its own step index, so slots can sit at
+# different steps; a step's pixel set is padded to the widest step's
+# size with a dummy pixel and a dummy error cell (one past the end of
+# each buffer) that nothing real reads.  Every real pixel gets
+# ``fsd_dither``'s arithmetic in its order, so a slot's output equals
+# the solo dither bitwise.
+# ---------------------------------------------------------------------------
+def n_wavefront_steps(h: int, w: int) -> int:
+    return 2 * (h - 1) + w
+
+
+@functools.lru_cache(maxsize=4)
+def _wavefront_padded(h: int, w: int, device: str):
+    """``_wavefront``'s index plan as (steps, widest step) tables, the
+    padding on the dummy pixel ``h * w`` and the dummy error cell."""
+    (pix, own, left_of, up, up_right, up_left), starts = _wavefront(
+        h, w, device)
+    n_err = (h + 1) * (w + 2)
+    width = max(hi - lo for lo, hi in zip(starts[:-1], starts[1:]))
+    tables = []
+    for ix, dummy in ((pix, h * w), (own, n_err), (left_of, n_err),
+                      (up, n_err), (up_right, n_err), (up_left, n_err)):
+        tab = torch.full((len(starts) - 1, width), dummy, dtype=ix.dtype,
+                         device=ix.device)
+        for t, (lo, hi) in enumerate(zip(starts[:-1], starts[1:])):
+            tab[t, :hi - lo] = ix[lo:hi]
+        tables.append(tab)
+    return tuple(tables)
+
+
+def wavefront_row(img: torch.Tensor):
+    """One slot's initial state for ``img`` (H, W): (image, error
+    buffer, output, step index), each buffer with its dummy cell."""
+    H, W = img.shape
+    dev = img.device
+    return (torch.cat([img.reshape(-1),
+                       torch.zeros(1, dtype=img.dtype, device=dev)]),
+            torch.zeros((H + 1) * (W + 2) + 1, dtype=torch.float32,
+                        device=dev),
+            torch.zeros(H * W + 1, dtype=torch.float32, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def wavefront_step(rows, h: int, w: int):
+    """One wavefront step of every slot of ``rows`` (the slot-stacked
+    ``wavefront_row`` states), each at its own step; a slot past its
+    last step repeats it on its own buffers."""
+    x, err, out, t = rows
+    pix, own, left_of, up, up_right, up_left = _wavefront_padded(
+        h, w, str(x.device))
+    tt = t.clamp(max=pix.shape[0] - 1)
+    p = pix[tt]
+    below = ((err.gather(1, up[tt]) * (5 / 16)
+              + err.gather(1, up_right[tt]) * (3 / 16))
+             + err.gather(1, up_left[tt]) * (1 / 16))
+    old = x.gather(1, p) + below + err.gather(1, left_of[tt]) * (7 / 16)
+    new = torch.where(old > 127.5, 255.0, 0.0)
+    err.scatter_(1, own[tt], old - new)
+    out.scatter_(1, p, new)
+    return x, err, out, t + 1
+
+
+def wavefront_out(row, h: int, w: int) -> torch.Tensor:
+    """The dithered (H, W) image of one slot's final state (a copy)."""
+    return row[2][:h * w].reshape(h, w).clone()
+
+
 def run_hybrid(ex: HybridExecutor, h: int = 256, w: int = 256
                ) -> WorkSharedOutput:
     dev = primary_device(ex.groups[0])

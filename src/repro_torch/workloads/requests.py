@@ -36,13 +36,15 @@ the way real repeated traffic would.  The attention and LM adapters
 draw their seeded inputs with a CPU ``torch.Generator``, which is not
 the reference's ``jax.random`` stream: pass the arrays to compare.
 
-The continuous-batching route (``stepper``, ``continuous=True``
-payloads, ``make_continuous_lm_adapter``) comes with the continuous
-engine; until then such a payload raises.
+Adapters whose spec carries a ``stepper`` ride the continuous-batching
+engine (``serve/continuous.py``): ``continuous=True`` payloads of
+listrank, lbm and dither, and every request of a
+``make_continuous_lm_adapter`` workload.
 """
 from __future__ import annotations
 
 import functools
+import os
 import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Union
@@ -52,7 +54,7 @@ import torch
 
 from repro_torch.core.cost_model import CostTerms
 from repro_torch.kernels.autotune import bucket as pow2_bucket
-from repro_torch.kernels.common import current_device, sync
+from repro_torch.kernels.common import current_device, lane_device, sync
 
 UnitCost = Union[CostTerms, Dict[str, CostTerms], None]
 
@@ -83,8 +85,9 @@ class RequestSpec:
     cannot stack, e.g. mismatched shapes inside one pow2 bucket — the
     scheduler then falls back to per-request coalescing).
 
-    ``stepper`` opts a request into the continuous-batching engine; no
-    adapter sets it until that engine is ported.
+    ``stepper`` opts a request into the continuous-batching engine
+    (``serve/continuous.py``): requests sharing one stepper instance
+    stack into one slot state.
 
     ``lane_class`` is the contention pricing class: ``"torch"`` ops are
     internally multithreaded on the CPU and share the card's launch
@@ -181,13 +184,6 @@ def make_request(workload: str, payload: Optional[dict] = None
         raise KeyError(f"unknown workload {workload!r}; registered: "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[workload](payload)
-
-
-def _no_continuous(workload: str, p: dict) -> None:
-    if p.get("continuous"):
-        raise NotImplementedError(
-            f"{workload}: continuous=True needs the continuous-batching "
-            f"engine, which is not ported yet (ROADMAP queue 1, item 5)")
 
 
 def _gather(outs) -> torch.Tensor:
@@ -828,9 +824,108 @@ def _montecarlo_spec(payload: Optional[dict]) -> RequestSpec:
 
 
 # ---------------------------------------------------------------------------
+# Iteration steppers — the sequential single-unit adapters (listrank /
+# lbm / dither) as continuous-batching citizens: one pointer-jump
+# round / BGK step / dither wavefront step is the engine's scheduling
+# quantum, so a request becomes preemptible at every iteration boundary
+# and same-shape requests stack into one batched call.  Opt-in via the
+# ``continuous: True`` payload key: monolithic ``run_one`` is faster for
+# a solo request, so solo-latency traffic keeps the old path; the
+# engine wins when several same-shape requests are live or lane time
+# must be shared at fine grain.  Steppers are memoized per shape — the
+# engine is keyed by stepper instance, so every same-shape request
+# stacks into one slot state.  Each row's state is built on the prefill
+# lane's device; the engine's insert moves it to the decode lane's.
+# ---------------------------------------------------------------------------
+def _engine_slots(default: int = 4) -> int:
+    try:
+        return max(int(os.environ.get("REPRO_SERVE_SLOTS", default)), 1)
+    except ValueError:
+        return default
+
+
+@functools.lru_cache(maxsize=4)
+def _listrank_stepper(n: int):
+    from repro_torch.serve.continuous import IterStepper
+    from repro_torch.workloads import listrank as lr
+
+    uc = lr.unit_cost_terms(n)
+    steps = max(int(uc.steps), 1)
+
+    def make_rows(spec):
+        succ = spec.arrays[0].on(current_device())[0]
+        rank0 = (succ != torch.arange(n, device=succ.device)).to(
+            torch.int32)
+        return [((succ, rank0), steps)]
+
+    return IterStepper(
+        workload=f"serve-listrank/{n}", n_slots=_engine_slots(),
+        template_row=lambda dev: (
+            torch.zeros((n,), dtype=torch.int64, device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev)),
+        # exactly ceil(log2 n) rounds equal pointer_jump_rank's loop
+        # (extra rounds are idempotent: the tail self-loop fixes succ);
+        # integer gathers, so any batching is exact
+        iter_fn=torch.func.vmap(lambda sr: lr._one_round(sr[0], sr[1])),
+        make_rows=make_rows,
+        finalize=lambda row: row[1].cpu().numpy(),
+        prefill_cost=CostTerms(flops=2.0 * n, bytes=8.0 * n),
+        decode_cost=CostTerms(flops=uc.flops / steps,
+                              bytes=uc.bytes / steps))
+
+
+@functools.lru_cache(maxsize=4)
+def _lbm_stepper(d: int, n_steps: int):
+    from repro_torch.serve.continuous import IterStepper
+    from repro_torch.workloads import lbm
+
+    uc = lbm.unit_cost_terms(d, n_steps)
+
+    return IterStepper(
+        workload=f"serve-lbm/{d}x{n_steps}", n_slots=_engine_slots(),
+        template_row=lambda dev: torch.zeros((19, d, d, d),
+                                             dtype=torch.float32,
+                                             device=dev),
+        iter_fn=torch.func.vmap(lbm.step_all),
+        make_rows=lambda spec: [
+            (spec.arrays[0].on(current_device())[0], n_steps)],
+        finalize=lambda row: row.clone(),
+        prefill_cost=CostTerms(bytes=19.0 * 4.0 * d ** 3),
+        decode_cost=CostTerms(flops=uc.flops / n_steps,
+                              bytes=uc.bytes / n_steps))
+
+
+@functools.lru_cache(maxsize=4)
+def _dither_stepper(h: int, w: int):
+    from repro_torch.serve.continuous import IterStepper
+    from repro_torch.workloads import dither
+
+    n_steps = dither.n_wavefront_steps(h, w)
+
+    def make_rows(spec):
+        img = spec.arrays[0].on(current_device())[0]
+        return [(dither.wavefront_row(img), n_steps)]
+
+    uc = dither.unit_cost_terms(h, w)
+    return IterStepper(
+        workload=f"serve-dither/{h}x{w}", n_slots=_engine_slots(),
+        template_row=lambda dev: dither.wavefront_row(
+            torch.zeros((h, w), dtype=torch.float32, device=dev)),
+        # written batched: the slots sit at different wavefront steps,
+        # whose pixel sets differ in size (padded to one width)
+        iter_fn=lambda rows: dither.wavefront_step(rows, h, w),
+        make_rows=make_rows,
+        finalize=lambda row: dither.wavefront_out(row, h, w),
+        prefill_cost=CostTerms(bytes=4.0 * h * w),
+        decode_cost=CostTerms(flops=uc.flops / n_steps,
+                              bytes=uc.bytes / n_steps))
+
+
+# ---------------------------------------------------------------------------
 # listrank — Wyllie pointer jumping (paper §4.8).  The rounds are
 # sequential, so a request is ONE indivisible unit: placement
-# co-schedules whole rankings across lanes.
+# co-schedules whole rankings across lanes.  ``continuous: True``
+# payloads ride the step-quantum engine instead.
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=4)
 def _listrank_inputs(n: int, seed: int) -> Inputs:
@@ -842,7 +937,6 @@ def _listrank_spec(payload: Optional[dict]) -> RequestSpec:
     from repro_torch.workloads import listrank as lr
 
     p = dict(payload or {})
-    _no_continuous("listrank", p)
     n = int(p.get("n", 1 << 14))
     ins = _listrank_inputs(n, int(p.get("seed", 0)))
 
@@ -857,7 +951,8 @@ def _listrank_spec(payload: Optional[dict]) -> RequestSpec:
         combine=lambda outs: outs[0],
         unit_cost=lr.unit_cost_terms(n),
         bucket=f"N{pow2_bucket(n)}",
-        arrays=(ins,))
+        arrays=(ins,),
+        stepper=_listrank_stepper(n) if p.get("continuous") else None)
 
 
 # ---------------------------------------------------------------------------
@@ -914,7 +1009,6 @@ def _lbm_spec(payload: Optional[dict]) -> RequestSpec:
     from repro_torch.workloads import lbm
 
     p = dict(payload or {})
-    _no_continuous("lbm", p)
     d = int(p.get("d", 16))
     n_steps = max(int(p.get("n_steps", 2)), 1)
     ins = _lbm_state(d, int(p.get("seed", 0)))
@@ -932,7 +1026,8 @@ def _lbm_spec(payload: Optional[dict]) -> RequestSpec:
         combine=lambda outs: outs[0],
         unit_cost=lbm.unit_cost_terms(d, n_steps),
         bucket=f"D{d}_s{n_steps}",
-        arrays=(ins,))
+        arrays=(ins,),
+        stepper=_lbm_stepper(d, n_steps) if p.get("continuous") else None)
 
 
 # ---------------------------------------------------------------------------
@@ -949,7 +1044,6 @@ def _dither_spec(payload: Optional[dict]) -> RequestSpec:
     from repro_torch.workloads import dither
 
     p = dict(payload or {})
-    _no_continuous("dither", p)
     h = int(p.get("h", 128))
     w = int(p.get("w", 128))
     ins = _dither_inputs(h, w, int(p.get("seed", 0)))
@@ -964,7 +1058,8 @@ def _dither_spec(payload: Optional[dict]) -> RequestSpec:
         combine=lambda outs: outs[0],
         unit_cost=dither.unit_cost_terms(h, w),
         bucket=f"H{pow2_bucket(h)}_W{pow2_bucket(w)}",
-        arrays=(ins,))
+        arrays=(ins,),
+        stepper=_dither_stepper(h, w) if p.get("continuous") else None)
 
 
 # ---------------------------------------------------------------------------
@@ -1070,6 +1165,35 @@ def params_to(params, device: torch.device):
     return params
 
 
+class WeightCopies:
+    """A parameter tree and one copy of it on each other device of
+    ``devices``, made here, once, outside any request: each lane runs
+    on its own device from that device's copy.  ``on(dev)`` raises for
+    a device with no copy."""
+
+    def __init__(self, params, devices=(), owner: str = ""):
+        from repro_torch.models.param import leaves
+
+        self.params = params
+        self.owner = owner
+        self._by_dev = {str(next(leaves(params)).device): params}
+        for dev in devices:
+            dev = torch.device(dev)
+            if str(dev) not in self._by_dev:
+                self._by_dev[str(dev)] = params_to(params, dev)
+
+    @property
+    def devices(self) -> List[str]:
+        return list(self._by_dev)
+
+    def on(self, dev):
+        try:
+            return self._by_dev[str(dev)]
+        except KeyError:
+            raise RuntimeError(f"{self.owner}: no copy of the weights on "
+                               f"{dev} (devices=...)") from None
+
+
 def make_lm_adapter(cfg, params, prompt_len: int = 16,
                     new_tokens: int = 16, name: Optional[str] = None,
                     devices=()) -> str:
@@ -1083,32 +1207,18 @@ def make_lm_adapter(cfg, params, prompt_len: int = 16,
     weights: ``params`` serves its own device, and a copy is made here,
     once, for every other device in ``devices`` (outside any request).
     A lane whose device has no copy raises."""
-    from repro_torch.models.param import count_params, leaves
+    from repro_torch.models.param import count_params
     from repro_torch.serve.serve_step import generate
 
     wl_name = name or f"serve-lm/{cfg.name}"
     cache_len = prompt_len + new_tokens + 1
     n_params = count_params(params)
-    home = next(leaves(params)).device
-    by_dev = {str(home): params}
-    for dev in devices:
-        dev = torch.device(dev)
-        if str(dev) not in by_dev:
-            by_dev[str(dev)] = params_to(params, dev)
+    weights = WeightCopies(params, devices, owner=wl_name).on
     unit = CostTerms(flops=2.0 * n_params * (new_tokens + 1),
                      bytes=4.0 * n_params, compute="matmul")
 
-    def weights(dev):
-        try:
-            return by_dev[str(dev)]
-        except KeyError:
-            raise RuntimeError(f"{wl_name}: no copy of the weights on "
-                               f"{dev} (make_lm_adapter(devices=...))"
-                               ) from None
-
     def factory(payload: Optional[dict]) -> RequestSpec:
         p = dict(payload or {})
-        _no_continuous(wl_name, p)
         if "prompt" in p:
             prompt = torch.as_tensor(np.asarray(p["prompt"])).long()
         else:
@@ -1134,6 +1244,169 @@ def make_lm_adapter(cfg, params, prompt_len: int = 16,
 
     register(wl_name, factory)
     return wl_name
+
+
+def make_continuous_lm_adapter(cfg, params, prompt_len: int = 16,
+                               new_tokens: int = 16,
+                               name: Optional[str] = None,
+                               n_slots: Optional[int] = None,
+                               warm_background: bool = True,
+                               devices=()) -> str:
+    """Register a continuous-batching serve-LM adapter and return its
+    workload name (default ``serve-lm-cb/{arch}``).
+
+    Requests carry a shared :class:`repro_torch.serve.continuous.LMStepper`:
+    the scheduler routes them to ONE iteration-level engine whose
+    scheduling quantum is the decode step — live requests stack into a
+    single slot-batched call per step, new arrivals join at step
+    boundaries, finished rows demux exactly.  ``run_one`` keeps the
+    monolithic solo ``generate`` as the fallback when the engine is
+    disabled (``REPRO_SERVE_CONTINUOUS=0`` or fifo policy), so the
+    workload stays servable either way.  ``devices`` are the other
+    devices that get a copy of the weights (as ``make_lm_adapter``'s),
+    made here, once.  Registration starts a background warm-up of the
+    stepper's fixed slot shapes (prefill + slot step) on every device
+    that holds the weights, so the first request never pays it."""
+    from repro_torch.serve.continuous import LMStepper
+    from repro_torch.serve.serve_step import generate
+
+    wl_name = name or f"serve-lm-cb/{cfg.name}"
+    cache_len = prompt_len + new_tokens + 1
+    stepper = LMStepper(cfg, params, prompt_len=prompt_len,
+                        new_tokens=new_tokens, cache_len=cache_len,
+                        n_slots=n_slots or _engine_slots(),
+                        workload=wl_name, devices=devices)
+    unit = CostTerms(flops=2.0 * stepper.n_params * (new_tokens + 1),
+                     bytes=4.0 * stepper.n_params, compute="matmul")
+
+    def factory(payload: Optional[dict]) -> RequestSpec:
+        p = dict(payload or {})
+        if "prompt" in p:
+            prompt = torch.as_tensor(np.asarray(p["prompt"])).long()
+        else:
+            gen = torch.Generator().manual_seed(int(p.get("seed", 1)))
+            prompt = torch.randint(0, cfg.vocab_size,
+                                   (int(p.get("batch", 1)), prompt_len),
+                                   generator=gen)
+        ins = Inputs(prompt)
+        B = prompt.shape[0]
+
+        def run_one():
+            dev = current_device()
+            return sync(generate(cfg, stepper.weights(dev), ins.on(dev)[0],
+                                 new_tokens, cache_len=cache_len))
+
+        return RequestSpec(
+            workload=wl_name, total_units=B,
+            run_one=run_one,
+            run_share=lambda group, start, k: run_one(),
+            combine=lambda outs: outs[0],
+            unit_cost=unit,
+            bucket=f"B{pow2_bucket(B)}_P{prompt_len}_N{new_tokens}",
+            arrays=(ins,), stepper=stepper)
+
+    register(wl_name, factory)
+    if warm_background:
+        _spawn_precompile(stepper.warm, tag=wl_name)
+    return wl_name
+
+
+# ---------------------------------------------------------------------------
+# Registry-level precompile: merged-stack pow2 shapes + stepper
+# programs, run once ahead of traffic (optionally in the background at
+# adapter-registration time).  Merged executions run pow2-padded
+# stacks, and each padded shape pays its first use (kernel builds, the
+# caching allocator's growth) once per (shape, device) — enough to
+# cascade an open-loop backlog when it lands mid-trace.
+# ---------------------------------------------------------------------------
+_PRECOMPILE_THREADS: List[threading.Thread] = []
+_PRECOMPILE_LOCK = threading.Lock()
+
+
+def _spawn_precompile(fn: Callable[[], None], tag: str = "") -> None:
+    """Run ``fn`` on a daemon thread named ``precompile-*`` (NEVER
+    ``serve-*``: test teardown asserts those are all joined) and track
+    it so ``wait_precompiled`` can rendezvous."""
+    def work():
+        try:
+            fn()
+        except Exception:
+            pass  # precompile is best-effort; traffic just pays it later
+
+    t = threading.Thread(target=work, daemon=True,
+                         name=f"precompile-{tag or len(_PRECOMPILE_THREADS)}")
+    with _PRECOMPILE_LOCK:
+        _PRECOMPILE_THREADS.append(t)
+    t.start()
+
+
+def wait_precompiled(timeout: Optional[float] = None) -> bool:
+    """Join all background precompile threads; True if all finished."""
+    import time
+
+    deadline = None if timeout is None else time.monotonic() + timeout
+    with _PRECOMPILE_LOCK:
+        threads = list(_PRECOMPILE_THREADS)
+    for t in threads:
+        left = (None if deadline is None
+                else max(deadline - time.monotonic(), 0.0))
+        t.join(timeout=left)
+        if t.is_alive():
+            return False
+    return True
+
+
+def precompile_merged(mix, max_batch: int = 8, background: bool = False,
+                      devices=None) -> None:
+    """Run the merged-stack pow2 shapes (k in 2, 4, ``max_batch``) and
+    any continuous-engine stepper programs once for every workload in
+    ``mix`` (a list of ``(workload, payload)`` pairs), on every device
+    (default: the detected pair's, or the CPU without a GPU) —
+    scheduler-driven warm bursts can't guarantee lane coverage because
+    placement keeps picking the same idle lane.  First-use cost is a
+    property of the process, not of the policy under test.  With
+    ``background=True`` this returns immediately; rendezvous via
+    ``wait_precompiled``."""
+    def work():
+        if devices is not None:
+            devs = [torch.device(d) for d in devices]
+        elif torch.cuda.is_available():
+            devs = [torch.device("cuda", 0), torch.device("cpu")]
+        else:
+            devs = [torch.device("cpu")]
+        warmed = set()
+        for wl, payload in mix:
+            try:
+                probe = make_request(wl, payload)
+            except Exception:
+                continue
+            stepper = getattr(probe, "stepper", None)
+            if stepper is not None and id(stepper) not in warmed:
+                warmed.add(id(stepper))
+                for dev in devs:
+                    try:
+                        with lane_device(dev):
+                            stepper.warm()
+                    except Exception:
+                        pass
+            if getattr(probe, "merge", None) is None:
+                continue
+            for k in (2, 4, max_batch):
+                try:
+                    merged = probe.merge(
+                        [make_request(wl, payload) for _ in range(k)])
+                except Exception:
+                    continue
+                if merged is None:
+                    continue
+                for dev in devs:
+                    with lane_device(dev):
+                        merged.spec.run_one()
+
+    if background:
+        _spawn_precompile(work, tag="merged")
+    else:
+        work()
 
 
 def _ensure_defaults() -> None:

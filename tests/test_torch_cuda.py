@@ -1249,3 +1249,72 @@ def test_histogram_rows_exact_on_gpu(gpu, n_bins):
     out = hist_ops.histogram_rows(x, n_bins)
     for i in range(6):
         assert torch.equal(out[i], hist_ref(x[i], n_bins))
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching engine on the card
+# ---------------------------------------------------------------------------
+def _accel_group(gpu):
+    from repro_torch.core.hybrid_executor import DeviceGroup
+    return [DeviceGroup("accel", [gpu], "accel")]
+
+
+@pytest.mark.needs_cuda
+def test_continuous_lm_engine_on_gpu(gpu, fresh_serving):
+    """kimi-k2 reduced() on the card through the engine: a burst of
+    batch-1 requests stacks into slot-batched steps, each request's
+    tokens bitwise a solo ``generate`` of its prompt at B = 1, every
+    K8 launch on its tensor-core entry."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import scheduler as sched_mod
+    from repro_torch.serve.serve_step import generate
+    from repro_torch.workloads import requests as adapters
+
+    cfg = registry.get("kimi-k2-1t-a32b").reduced()
+    params = model_zoo.init(cfg, 0, device=gpu)
+    wl = adapters.make_continuous_lm_adapter(
+        cfg, params, prompt_len=16, new_tokens=4, n_slots=4,
+        warm_background=False, name="serve-lm-cb/gpu-test")
+    try:
+        sched = sched_mod.Scheduler(groups=_accel_group(gpu))
+        common.reset_launches()
+        futs = [sched.submit(wl, {"batch": 1, "seed": s}) for s in range(6)]
+        outs = [f.result(timeout=300) for f in futs]
+        snap = sched.stats.snapshot()
+        entries = common.entry_counts()
+        sched.shutdown()
+        for s, out in enumerate(outs):
+            prompt = adapters.make_request(wl, {"batch": 1, "seed": s}) \
+                .arrays[0].on(gpu)[0]
+            want = generate(cfg, params, prompt, 4, cache_len=21).cpu()
+            assert torch.equal(out, want), s
+        assert 0 < snap["engine_steps"] < 6 * 4
+        assert entries["gmm_wgmma_bf16"] > 0 and not entries["gmm_fma_bf16"]
+    finally:
+        adapters.unregister(wl)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("wl,payload", [
+    ("listrank", {"n": 1 << 12}), ("lbm", {"d": 16, "n_steps": 3}),
+    ("dither", {"h": 48, "w": 40})])
+def test_iteration_steppers_on_gpu(gpu, fresh_serving, wl, payload):
+    """The iteration steppers decoding on the card: three stacked
+    requests, each bitwise its solo ``run_one`` on the card."""
+    from repro_torch.kernels.common import lane_device
+    from repro_torch.serve import scheduler as sched_mod
+    from repro_torch.workloads import requests as adapters
+
+    sched = sched_mod.Scheduler(groups=_accel_group(gpu))
+    futs = [sched.submit(wl, dict(payload, seed=s, continuous=True))
+            for s in range(3)]
+    outs = [f.result(timeout=300) for f in futs]
+    sched.shutdown()
+    for s, out in enumerate(outs):
+        with lane_device(gpu):
+            solo = adapters.make_request(wl, dict(payload, seed=s)).run_one()
+        if isinstance(solo, torch.Tensor):
+            assert out.device == solo.device and torch.equal(out, solo), s
+        else:
+            np.testing.assert_array_equal(out, solo)

@@ -507,7 +507,12 @@ def test_span_factor_self_probe_bounds_and_pin(monkeypatch):
         s4.shutdown()
 
 
-def test_continuous_route_is_off_until_the_engine_is_ported():
+def test_continuous_route_is_off_until_the_engine_is_ported(monkeypatch):
+    """The engine is ported: its route is on by default and
+    ``REPRO_SERVE_CONTINUOUS=0`` turns it off, as in the reference."""
+    monkeypatch.delenv("REPRO_SERVE_CONTINUOUS", raising=False)
+    assert sched_mod.continuous_enabled() is True
+    monkeypatch.setenv("REPRO_SERVE_CONTINUOUS", "0")
     assert sched_mod.continuous_enabled() is False
 
 
@@ -559,8 +564,14 @@ def test_adapter_outside_a_lane_needs_a_gpu_or_an_explicit_device():
 
 @pytest.mark.parametrize("wl", ["listrank", "lbm", "dither"])
 def test_continuous_payload_raises_until_the_engine_is_ported(wl):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        adapters.make_request(wl, {"continuous": True})
+    """The engine is ported: a ``continuous=True`` payload carries the
+    workload's stepper (one per shape, shared), a plain one none."""
+    spec = adapters.make_request(wl, {"continuous": True})
+    assert spec.stepper is not None
+    assert adapters.make_request(wl, {"continuous": True}).stepper \
+        is spec.stepper
+    assert spec.stepper.workload == spec.workload
+    assert adapters.make_request(wl, {}).stepper is None
 
 
 # ---------------------------------------------------------------------------
@@ -879,8 +890,8 @@ def test_lm_adapter_rows_and_shares_match_generate():
         assert torch.equal(spec.run_one(), want)
         parts = [spec.run_share("accel", 0, 2), spec.run_share("host", 2, 1)]
         assert torch.equal(spec.combine(parts), want)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        adapters.make_request(wl, {"continuous": True})
+    # a monolithic LM adapter has no stepper, whatever the payload says
+    assert adapters.make_request(wl, {"continuous": True}).stepper is None
     with lane_device(torch.device("meta")):
         with pytest.raises(RuntimeError, match="no copy of the weights"):
             spec.run_one()
@@ -921,5 +932,9 @@ def test_launcher_hybrid_and_stream_on_the_cpu_pair():
     assert all(torch.equal(t, first) for t in out["tokens"])
     st = out["stats"]
     assert st.in_flight == 0 and st.completed == len(out["tokens"]) + 1
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve.main(argv + ["--stream", "--continuous"], device="cpu")
+    out = serve.main(argv[:2] + ["--batch", "1", "--prompt-len", "8",
+                                 "--new-tokens", "3", "--stream",
+                                 "--continuous", "--rate", "20",
+                                 "--duration", "0.3"], device="cpu")
+    assert out["rejected"] == 0 and out["tokens"]
+    assert out["stats"].engine_steps > 0 and out["engine_placements"]
