@@ -86,6 +86,23 @@
    Also K7's f32 entry at the serve stream's attention shape (4 x 1024,
    64/8 heads, d = 112, causal) against its plain version and SDPA in
    f32, its launches per serve-stream run.
+   Then (after the continuous phase, kimi-k2's weights freed) the
+   model families: (a) deepseek-v2-lite-16b, full width and all 27
+   layers (MLA + 64 experts top-6, ~31 GB of bf16 weights from seed 0),
+   greedy ``generate`` at batch 4 x 1024 + 16: K8's launches per
+   prefill and per step (all on ``gmm_wgmma_bf16``), prefill and step
+   times, peak memory, the tokens against the plain path under the
+   margin rule, K8's rows at the prefill (C = 480) and decode (C = 4)
+   shapes on the model's expert weights beside ``torch.bmm``; (b)
+   minicpm3-4b, full width and all 62 MLA layers, on the continuous
+   engine: a burst of 8 batch-1 requests (1024 + 16) into 4 slots, each
+   request's tokens bitwise a solo ``generate`` and the 4-slot step's
+   logits bitwise four B = 1 steps'; (c) whisper-tiny, full config, at
+   batch 4: the encoder over 1500 frames, the decoder teacher-forced
+   over 448 tokens and 16 decode steps against its logits (atol 0.25,
+   rtol 0.1), K7's full route launched at T = S = 1500, T = 448 and
+   T = 1 against S = 1500, every launch held against its plain version,
+   K7's rows at the three shapes beside SDPA.
 7. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
    workloads at both of the paper's ratios (10 and 3.9) on the
    simulated pair on the GPU (``force_simulated``), a cold pass (its
@@ -1933,6 +1950,65 @@ def lm_phase(torch, dev):
     return counts, per, cfg, params
 
 
+def _k7_row(torch, flush, label, q, k, v, causal):
+    """K7 on (BH, T, d) / (BHkv, S, d) bf16 against its plain version and
+    SDPA on the same inputs: the JSON row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda, route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    BH, T, d = q.shape
+    BHkv, S, _ = k.shape
+    rep = BH // BHkv
+
+    def plain():
+        return attention_ref(q, k.repeat_interleave(rep, 0),
+                             v.repeat_interleave(rep, 0), causal)
+
+    out, ref = flash_attention_cuda(q, k, v, causal), plain()
+    tol = TOL["flash_attention"]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"flash_attention {label}: {m}")
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    pairs = T * (T + 1) // 2 if causal else T * S
+    q4, k4, v4 = (t.view(1, -1, t.shape[1], d) for t in (q, k, v))
+    return kernel_row(
+        "flash_attention", err,
+        time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal), flush),
+        time_ms(torch, plain, flush, iters=10),
+        4.0 * BH * pairs * d, 2.0 * (2 * BH * T + 2 * BHkv * S) * d,
+        time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, enable_gqa=True), flush),
+        f"{label}: BH={BH}/{BHkv} T={T} S={S} d={d} "
+        f"{'causal' if causal else 'full'}", PEAK_BF16_FLOPS,
+        entry=route(q.dtype, d))
+
+
+def _k8_row(torch, flush, label, x, w):
+    """K8 on the model's expert weights against its plain version and
+    ``torch.bmm`` on the same operands: the JSON row."""
+    from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch, route
+
+    E, c, D = x.shape
+    F_ = w.shape[2]
+    out, ref = gmm_cuda(x, w), gmm_torch(x, w)
+    tol = TOL["gmm"]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"gmm {label}: {m}")
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    return kernel_row(
+        "gmm", err, time_ms(torch, lambda: gmm_cuda(x, w), flush),
+        time_ms(torch, lambda: gmm_torch(x, w), flush, iters=10),
+        2.0 * E * c * D * F_, 2.0 * E * (c * D + D * F_ + c * F_),
+        time_ms(torch, lambda: torch.bmm(x, w), flush),
+        f"{label}: E={E} C={c} D={D} F={F_}", PEAK_BF16_FLOPS,
+        entry=route(x.dtype, D, F_))
+
+
 def lm_kernel_rows(torch, dev, flush, cfg, params):
     """K7 and K8 against their plain versions at the main path's shapes
     (the JSON rows: K7 at prefill, K8 at each of its five shapes: decode
@@ -1947,7 +2023,6 @@ def lm_kernel_rows(torch, dev, flush, cfg, params):
         route as flash_route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gmm.gmm import gmm_cuda, gmm_torch
-    from repro_torch.kernels.gmm.gmm import route as gmm_route
 
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -1978,20 +2053,8 @@ def lm_kernel_rows(torch, dev, flush, cfg, params):
     B, H, Kv, T, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT, \
         cfg.head_dim
     q, k, v = randn(B * H, T, d), randn(B * Kv, T, d), randn(B * Kv, T, d)
-    err = check("flash_attention", flash_attention_cuda(q, k, v, True),
-                attn_plain(q, k, v, True), "main path (prefill)")
-    q4, k4, v4 = (t.view(B, -1, T, d) for t in (q, k, v))
-    pairs = T * (T + 1) // 2                      # causal (q, k) pairs
-    rows = [kernel_row(
-        "flash_attention", err,
-        time_ms(torch, lambda: flash_attention_cuda(q, k, v, True), flush),
-        time_ms(torch, lambda: attn_plain(q, k, v, True), flush, iters=10),
-        4.0 * B * H * pairs * d, 2.0 * (2 * B * H + 2 * B * Kv) * T * d,
-        time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True), flush),
-        f"prefill: BH={B * H}/{B * Kv} T=S={T} d={d} causal",
-        PEAK_BF16_FLOPS, entry=flash_route(q.dtype, d))]
-    del q, k, v, q4, k4, v4
+    rows = [_k7_row(torch, flush, "prefill", q, k, v, True)]
+    del q, k, v
 
     # K7's f32 entry (the CUDA-core kernel, flash_attention_fma_f32) at
     # the serve stream's attention requests: 4 x 1024, 64/8 heads,
@@ -2063,16 +2126,8 @@ def lm_kernel_rows(torch, dev, flush, cfg, params):
               ("prefill down", LM_BATCH * C, ffn["w_down"]),
               ("prefill tail up", LM_BATCH * max(1, C // 4), ffn["w_up"])]
     for label, c, w in shapes:
-        E, D, F_ = w.shape
-        x = randn(E, c, D)
-        err = check("gmm", gmm_cuda(x, w), gmm_torch(x, w), label)
-        rows.append(kernel_row(
-            "gmm", err, time_ms(torch, lambda: gmm_cuda(x, w), flush),
-            time_ms(torch, lambda: gmm_torch(x, w), flush, iters=10),
-            2.0 * E * c * D * F_, 2.0 * E * (c * D + D * F_ + c * F_),
-            time_ms(torch, lambda: torch.bmm(x, w), flush),
-            f"{label}: E={E} C={c} D={D} F={F_}", PEAK_BF16_FLOPS,
-            entry=gmm_route(x.dtype, D, F_)))
+        E, D, _ = w.shape
+        rows.append(_k8_row(torch, flush, label, randn(E, c, D), w))
     return rows
 
 
@@ -2914,6 +2969,373 @@ def serve_continuous_phase(torch, np, cfg, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# model-families phase: MLA (deepseek-v2-lite-16b, minicpm3-4b) and the
+# encoder-decoder (whisper-tiny)
+# ---------------------------------------------------------------------------
+FAM_DEEPSEEK, FAM_MINICPM, FAM_WHISPER = ("deepseek-v2-lite-16b",
+                                          "minicpm3-4b", "whisper-tiny")
+# whisper's 30 s window: 1500 encoder frames; 448 decoder positions
+WHISPER_FRAMES, WHISPER_DEC = 1500, 448
+BF16_MODEL_TOL = dict(atol=0.25, rtol=0.1)   # tests/test_models.py's
+
+
+def deepseek_phase(torch, dev):
+    """(a) deepseek-v2-lite-16b at full width and depth (MLA + 64 experts
+    top-6, two shared experts, a dense first layer) through greedy
+    ``generate``: K8 on the MoE layers, then the plain path's tokens
+    under the margin rule, then K8's rows at the prefill and the decode
+    shapes on the model's expert weights.  Returns (the generate call's
+    launch counts, the rows)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import common
+    from repro_torch.models import model_zoo
+    from repro_torch.models.param import count_params, param_bytes
+    from repro_torch.serve.plain_check import (MARGIN, check_tokens,
+                                               greedy_with_gaps,
+                                               plain_kernels)
+    from repro_torch.serve.serve_step import (generate, make_prefill_step,
+                                              make_serve_step)
+
+    cfg = registry.get(FAM_DEEPSEEK)
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.n_dense_layers
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    print(f"deepseek: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"mla kv_lora={cfg.mla.kv_lora_rank} rope={cfg.mla.qk_rope_head_dim}"
+          f" experts={m.n_routed} top{m.top_k} shared={m.n_shared} "
+          f"d_ff={m.d_ff}/{cfg.d_ff} layers={cfg.n_layers} (all: "
+          f"{m.n_dense_layers} dense, {n_moe} MoE) params="
+          f"{count_params(params)} weights_bytes={param_bytes(params)} "
+          f"init_s={time.perf_counter() - t0!r}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompt, LM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, entries = common.launch_counts(), common.entry_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 0,
+            "gmm": 3 * (1 + m.overflow_passes) * n_moe * (1 + LM_NEW)}
+    print(f"deepseek generate: batch={LM_BATCH} prompt={LM_PROMPT} "
+          f"new={LM_NEW} wall_s={wall!r} peak_bytes={peak} launches="
+          f"{counts} predicted={want} by entry: gmm_wgmma_bf16="
+          f"{entries['gmm_wgmma_bf16']} gmm_fma_bf16="
+          f"{entries['gmm_fma_bf16']}", flush=True)
+    if counts["gmm"] != want["gmm"] or counts["flash_attention"] \
+            or entries["gmm_wgmma_bf16"] != want["gmm"]:
+        raise AssertionError(f"deepseek generate: launches {counts} "
+                             f"{entries}, predicted {want} on gmm_wgmma_bf16")
+    if toks.shape != (LM_BATCH, LM_NEW + 1) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"deepseek generate: bad tokens {toks}")
+
+    L = LM_PROMPT + LM_NEW
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg, cache_len=L)
+        step = make_serve_step(cfg)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        tok, caches = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per_prefill = common.launch_counts()["gmm"]
+        tok = tok.to(torch.int32)
+        step_s, per_step = [], []
+        for t in range(LM_NEW):
+            common.reset_launches()
+            t0 = time.perf_counter()
+            tok, caches = step(params, tok, caches, LM_PROMPT + t)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(common.launch_counts()["gmm"])
+        # how much of a step is K8 and how much the host's dispatch
+        profile_window(torch, "deepseek decode profiled",
+                       lambda: step(params, tok, caches, L - 1))
+        del caches
+    decode_s = statistics.median(step_s)
+    print(f"deepseek prefill: ms={prefill_s * 1e3!r} tokens_per_s="
+          f"{LM_BATCH * LM_PROMPT / prefill_s!r} gmm_launches={per_prefill}")
+    print(f"deepseek decode: median_step_ms={decode_s * 1e3!r} min_step_ms="
+          f"{min(step_s) * 1e3!r} tokens_per_s={LM_BATCH / decode_s!r} "
+          f"gmm_launches_per_step={per_step[-1]}", flush=True)
+    if per_prefill <= 0 or min(per_step) <= 0:
+        raise AssertionError("deepseek: K8 not launched in a prefill or a "
+                             "step")
+
+    common.reset_launches()
+    with plain_kernels():
+        plain, gaps, _ = greedy_with_gaps(cfg, params, prompt, LM_NEW)
+    if common.launch_counts()["gmm"]:
+        raise AssertionError("deepseek plain path launched K8")
+    try:
+        differed = check_tokens(toks, plain, gaps)
+    except AssertionError as e:
+        raise AssertionError(f"deepseek check: {e}") from None
+    for b, t, gap in differed:
+        print(f"deepseek: row {b} differs first at token {t}, plain "
+              f"top-1/top-2 gap {gap!r}")
+    print(f"deepseek check: {LM_BATCH - len(differed)} of {LM_BATCH} rows "
+          f"equal to the plain path's tokens; the others pass the margin "
+          f"rule (gap < {MARGIN}); min gap {gaps.min().item()!r}",
+          flush=True)
+
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    w_up = params["stack"]["groups"][0]["l0"]["ffn"]["w_up"]
+    C = max(1, int(LM_PROMPT * m.top_k / m.n_routed * m.capacity_factor))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for label, c in (("deepseek prefill up", LM_BATCH * C),
+                     ("deepseek decode up", LM_BATCH)):
+        x = torch.randn((m.n_routed, c, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        rows.append(_k8_row(torch, flush, label, x, w_up))
+        rows[-1].update(path="deepseek generate",
+                        launches_per_prefill=per_prefill,
+                        launches_per_decode_step=per_step[-1])
+    del params, flush
+    gc.collect()
+    return counts, rows
+
+
+def minicpm_phase(torch, np):
+    """(b) minicpm3-4b at full width and depth (62 MLA layers, query
+    LoRA, dense FFNs) on the continuous engine over the accel group: a
+    burst of batch-1 requests into the slot-batched step, each request's
+    tokens bitwise a solo ``generate``, the 4-slot step's logits bitwise
+    four B = 1 steps'.  Returns the burst's launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.core.hybrid_executor import detect_platform
+    from repro_torch.kernels import common
+    from repro_torch.models import model_zoo
+    from repro_torch.models.param import count_params, param_bytes
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.serve_step import generate
+    from repro_torch.workloads import requests as adapters
+
+    dev = torch.device("cuda", 0)
+    cfg = registry.get(FAM_MINICPM)
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    print(f"minicpm3: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"mla q_lora={cfg.mla.q_lora_rank} kv_lora={cfg.mla.kv_lora_rank} "
+          f"d_ff={cfg.d_ff} layers={cfg.n_layers} params="
+          f"{count_params(params)} weights_bytes={param_bytes(params)} "
+          f"init_s={time.perf_counter() - t0!r}", flush=True)
+    wl = adapters.make_continuous_lm_adapter(
+        cfg, params, prompt_len=LM_PROMPT, new_tokens=LM_NEW,
+        n_slots=CB_SLOTS, warm_background=False, name="serve-lm-cb/chip-mla")
+    stepper = adapters.make_request(wl, {"batch": 1}).stepper
+    sched = Scheduler(groups=[detect_platform()[0][0]], max_batch=CB_BURST,
+                      batch_window_s=0.002)
+    rec = _instrument(torch, common, stepper,
+                      lambda: next(iter(sched._engines.values()), None))
+    sched.submit(wl, {"batch": 1, "seed": 100}).result(timeout=600)
+    rec["prefill"].clear()
+    rec["step"].clear()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    st0 = sched.stats.snapshot()
+    t0 = time.perf_counter()
+    burst = _burst(sched, wl, [{"batch": 1, "seed": s}
+                               for s in range(CB_BURST)])
+    wall = time.perf_counter() - t0
+    counts = common.launch_counts()
+    st1 = sched.stats.snapshot()
+    sched.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    d = {k: st1[k] - st0[k] for k in ("engine_steps", "engine_joins",
+                                      "engine_evictions")}
+    lat = [x for _, _, x in burst]
+    ttft = [f.meta["t_first_token"] - t for f, t, _ in burst]
+    print(f"minicpm3 continuous burst: {CB_BURST} requests of batch 1 x "
+          f"{LM_PROMPT} + {LM_NEW} into {CB_SLOTS} slots: {d} "
+          f"{_lat_line(np, lat)} ttft_ms p50={float(np.median(ttft)) * 1e3!r}"
+          f" wall_s={wall!r} tokens_per_s={CB_BURST * (LM_NEW + 1) / wall!r}"
+          f" peak_bytes={peak} launches={counts}", flush=True)
+    if not 0 < d["engine_steps"] < CB_BURST * LM_NEW \
+            or d["engine_joins"] != CB_BURST:
+        raise AssertionError(f"minicpm3 continuous: {d}: the rows did not "
+                             f"stack")
+    by_live = {}
+    for n_live, s_, _ in rec["step"]:
+        by_live.setdefault(n_live, []).append(s_)
+    print("minicpm3 continuous step: " + " ".join(
+        f"live={n} median_ms={statistics.median(v) * 1e3!r} (n={len(v)})"
+        for n, v in sorted(by_live.items())) + f"; a B=1 prefill median_ms="
+        f"{statistics.median(s_ for s_, _ in rec['prefill']) * 1e3!r}",
+        flush=True)
+    for s_, (f, _, _) in enumerate(burst):
+        prompt = adapters.make_request(wl, {"batch": 1, "seed": s_}) \
+            .arrays[0].on(dev)[0]
+        solo = generate(cfg, params, prompt, LM_NEW,
+                        cache_len=stepper.cache_len).cpu()
+        if not torch.equal(f.result(), solo):
+            raise AssertionError(f"minicpm3 continuous: request {s_} is not "
+                                 f"its solo generate's tokens")
+    prompts = [adapters.make_request(wl, {"batch": 1, "seed": s_})
+               .arrays[0].on(dev)[0] for s_ in range(CB_SLOTS)]
+    worst, flips, n_cmp = _slot_vs_solo(torch, cfg, params, stepper,
+                                        prompts, LM_NEW)
+    print(f"minicpm3 continuous: {CB_SLOTS}-slot step vs B=1 steps "
+          f"(teacher-forced, {n_cmp} row-steps): max |logits diff| "
+          f"{worst!r}, argmax disagreements {flips}; all {CB_BURST} "
+          f"requests' tokens equal a solo generate at B=1", flush=True)
+    if worst != 0.0 or flips:
+        raise AssertionError("minicpm3 continuous: the slot-batched MLA "
+                             "step is not bitwise the B=1 step")
+    adapters.unregister(wl)
+    del stepper, burst, params
+    gc.collect()
+    return counts
+
+
+def whisper_phase(torch, dev):
+    """(c) whisper-tiny, full config: the encoder over 1500 frames and
+    the teacher-forced decoder over 448 tokens at B = 4, then decode
+    steps against ``decode_train``'s logits.  K7's full route runs at
+    T = S = 1500 (encoder), T = 448, S = 1500 (cross-attention) and
+    T = 1, S = 1500 (a step's cross-attention); every K7 launch of the
+    counted pass is held against its plain version on the same inputs.
+    Returns (the pass's launch counts, K7's rows at the three shapes)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import encdec, model_zoo
+    from repro_torch.models.param import count_params
+
+    cfg = registry.get(FAM_WHISPER)
+    params = model_zoo.init(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B = LM_BATCH
+    frames = torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    dec = torch.randint(0, cfg.vocab_size, (B, WHISPER_DEC), generator=gen,
+                        device=dev)
+    print(f"whisper: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}x"
+          f"{cfg.head_dim} layers={cfg.n_enc_layers}+{cfg.n_layers} params="
+          f"{count_params(params)} batch={B} frames={WHISPER_FRAMES} "
+          f"dec_tokens={WHISPER_DEC}", flush=True)
+
+    held = {}                     # (T, S, causal) -> [launches, max err]
+    real = flash_ops.sdpa
+
+    def sdpa_held(q, k, v, *, causal=True, config=None):
+        out = real(q, k, v, causal=causal, config=config)
+        ref = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        use_kernel=False)
+        key = (q.shape[1], k.shape[1], causal)
+        tol = TOL["flash_attention"]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"whisper K7 "
+                                   f"T={key[0]} S={key[1]} causal={causal}"
+                                   f": {m}")
+        err = (out.float() - ref.float()).abs().max().item()
+        n, e = held.get(key, (0, 0.0))
+        held[key] = (n + 1, max(e, err))
+        return out
+
+    launches = {}
+    flash_ops.sdpa = sdpa_held
+    try:
+        with torch.inference_mode():
+            common.reset_launches()
+            enc = encdec.encode(params, frames, cfg)
+            launches["encode"] = common.launch_counts()["flash_attention"]
+            full, _ = encdec.decode_train(params, enc, dec, cfg)
+            launches["decode_train"] = common.launch_counts()[
+                "flash_attention"] - launches["encode"]
+            caches = model_zoo.init_caches(cfg, B, LM_NEW, params=params,
+                                           enc_out=enc)
+            worst = 0.0
+            for t in range(LM_NEW):
+                lg, caches = model_zoo.decode_step(cfg, params,
+                                                   dec[:, t:t + 1], caches, t)
+                torch.testing.assert_close(
+                    lg[:, 0].float(), full[:, t].float(), **BF16_MODEL_TOL,
+                    msg=lambda m: f"whisper decode step {t}: {m}")
+                worst = max(worst, (lg[:, 0].float()
+                                    - full[:, t].float()).abs().max().item())
+            counts, entries = common.launch_counts(), common.entry_counts()
+    finally:
+        flash_ops.sdpa = real
+    launches["steps"] = counts["flash_attention"] - launches["encode"] \
+        - launches["decode_train"]
+    want = {"encode": cfg.n_enc_layers, "decode_train": 2 * cfg.n_layers,
+            "steps": LM_NEW * cfg.n_layers}
+    want_held = {(WHISPER_FRAMES, WHISPER_FRAMES, False): cfg.n_enc_layers,
+                 (WHISPER_DEC, WHISPER_DEC, True): cfg.n_layers,
+                 (WHISPER_DEC, WHISPER_FRAMES, False): cfg.n_layers,
+                 (1, WHISPER_FRAMES, False): LM_NEW * cfg.n_layers}
+    print(f"whisper: K7 launches {launches} predicted {want}; by entry "
+          f"flash_attention_wgmma_bf16={entries['flash_attention_wgmma_bf16']}"
+          f" flash_attention_fma_bf16={entries['flash_attention_fma_bf16']}; "
+          f"held against the plain version (T, S, causal): launches, max "
+          f"err {held}")
+    print(f"whisper decode: {LM_NEW} steps against decode_train's logits, "
+          f"max |diff| {worst!r} (atol {BF16_MODEL_TOL['atol']}, rtol "
+          f"{BF16_MODEL_TOL['rtol']})", flush=True)
+    if launches != want or {k: n for k, (n, _) in held.items()} != want_held \
+            or entries["flash_attention_wgmma_bf16"] != sum(want.values()) \
+            or entries["flash_attention_fma_bf16"]:
+        raise AssertionError(f"whisper: K7 launches {launches} {held} "
+                             f"{entries}, predicted {want} {want_held} on "
+                             f"flash_attention_wgmma_bf16")
+
+    # the same work unchecked, timed
+    with torch.inference_mode():
+        for label, fn in (("encode", lambda: encdec.encode(params, frames,
+                                                           cfg)),
+                          ("decode_train", lambda: encdec.decode_train(
+                              params, enc, dec, cfg))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            print(f"whisper {label}: ms={(time.perf_counter() - t0) * 1e3!r}")
+        caches = model_zoo.init_caches(cfg, B, LM_NEW, params=params,
+                                       enc_out=enc)
+        step_s = []
+        for t in range(LM_NEW):
+            t0 = time.perf_counter()
+            model_zoo.decode_step(cfg, params, dec[:, t:t + 1], caches, t)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        print(f"whisper decode step: median_ms="
+              f"{statistics.median(step_s) * 1e3!r} tokens_per_s="
+              f"{B / statistics.median(step_s)!r}", flush=True)
+        profile_window(torch, "whisper decode profiled",
+                       lambda: model_zoo.decode_step(
+                           cfg, params, dec[:, :1], caches, LM_NEW - 1))
+
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    H, d = cfg.n_heads, cfg.head_dim
+    rows = []
+    for label, T in (("whisper encoder", WHISPER_FRAMES),
+                     ("whisper cross-attention", WHISPER_DEC),
+                     ("whisper decode cross-attention", 1)):
+        q = torch.randn((B * H, T, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B * H, WHISPER_FRAMES, d), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        rows.append(_k7_row(torch, flush, label, q, k, v, False))
+        # this shape's launches in the counted whisper pass
+        rows[-1].update(path="whisper", launches_at_shape=held[
+            (T, WHISPER_FRAMES, False)][0])
+    del params, flush, enc, full, caches
+    gc.collect()
+    return counts, rows
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         fail("src/repro_torch/csrc not found beside this script: run it "
@@ -2967,6 +3389,14 @@ def main() -> None:
         torch, np, lm_cfg, lm_params)
     del lm_params
     gc.collect()            # the weights' last holders may sit in cycles
+    # the model families: MLA (deepseek on K8, minicpm3 through the
+    # engine) and the encoder-decoder (whisper on K7's full route)
+    t0 = time.perf_counter()
+    per_call["deepseek generate"], fam_rows = deepseek_phase(torch, dev)
+    per_call["minicpm3 continuous"] = minicpm_phase(torch, np)
+    per_call["whisper"], whisper_rows = whisper_phase(torch, dev)
+    rows += fam_rows + whisper_rows
+    print(f"families: phase {time.perf_counter() - t0:.1f} s", flush=True)
     # after the LM, so that the inputs these phases keep on the card
     # (montecarlo's 512 MB stream among them) stay out of its peak
     per_call["table2"] = table2_phase(torch)
@@ -2977,7 +3407,7 @@ def main() -> None:
         if r.get("entry") == K7_F32_ENTRY:
             r["launches_per_serve_stream"] = \
                 PHASE_ENTRIES["serve stream"][K7_F32_ENTRY]
-        if r["name"] in LM_ENTRY:
+        if r["name"] in LM_ENTRY and "path" not in r:
             r["launches_per_prefill"] = lm_per["prefill"][r["name"]]
             r["launches_per_decode_step"] = \
                 lm_per["decode step"][r["name"]]

@@ -8,7 +8,8 @@ device="cpu")`` runs it on the CPU from Python (``--hybrid`` and
 ``--stream`` then on the simulated pair).  Without ``--full`` the
 config is ``reduced()``; with it, the architecture's full config (a
 model whose weights must fit on the card).  Weights are random, from
-seed 0; the prompt from seed 1.
+seed 0; the prompt from seed 1.  An encoder-decoder arch (whisper) is
+refused with ``SystemExit``, as in the reference.
 
 ``--hybrid`` splits ONE request batch across the detected device groups
 through the chunk-pipelined ``HybridExecutor`` (rows = work units): on
@@ -255,10 +256,13 @@ def main(argv=None, device=None):
                          "+ placement audit as JSON")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(device)
     cfg = registry.get(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise SystemExit("enc-dec serving: see tests/test_archs.py whisper "
+                         "decode path")
+    dev = resolve_device(device)
     params = model_zoo.init(cfg, 0, device=dev)
 
     if args.stream:

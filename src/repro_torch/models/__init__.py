@@ -1,3 +1,3 @@
 """The LM stack that serving drives: layers, attention (through K7),
-MoE (through K8), block assembly, the decoder-only LM and the model
-zoo's functional interface."""
+MLA, MoE (through K8), block assembly, the decoder-only LM, the
+encoder-decoder and the model zoo's functional interface."""

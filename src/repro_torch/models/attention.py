@@ -1,16 +1,18 @@
 """Attention: MHA/GQA/MQA with RoPE, sliding-window, QK-norm, KV caches.
 
-Two entry points:
+Three entry points:
   * ``attention(...)``            — full-sequence (train / prefill)
   * ``attention_decode(...)``     — single-token step against a KV cache
+  * ``cross_attention(...)``      — decoder queries against the encoder's
+                                    precomputed K/V (encoder-decoder)
 
 Plain causal (or unmasked) attention goes through
-``kernels.flash_attention.ops.sdpa``: K7 on the GPU.  Sliding windows
-and logit softcaps keep the grouped-einsum ``_sdpa``, and so does the
-decode step, as in the reference.  There is no mesh here, so the
-reference's ``kv_repeat`` (KV heads repeated to shard over a model
-axis) is always 1 and is left out; cross-attention comes with the
-encoder-decoder slice.
+``kernels.flash_attention.ops.sdpa``: K7 on the GPU, its full
+(``causal=False``) route for the encoder and the cross-attention.
+Sliding windows and logit softcaps keep the grouped-einsum ``_sdpa``,
+and so does the decode step, as in the reference.  There is no mesh
+here, so the reference's ``kv_repeat`` (KV heads repeated to shard over
+a model axis) is always 1 and is left out.
 """
 from __future__ import annotations
 
@@ -171,3 +173,32 @@ def attention_decode(params, x, cfg, cache, position, *, sin=None,
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
     y = linear(params["wo"], out.reshape(B, 1, -1))
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+def init_cross_attention(gen, cfg, dtype):
+    return init_attention(gen, cfg, dtype)
+
+
+def cross_attention(params, x, enc_kv, cfg):
+    """x: (B, T, d) decoder side; enc_kv: precomputed {"k", "v"} from the
+    encoder (``encode_cross_kv``).  No mask: every query sees every
+    encoder frame."""
+    B, T, _ = x.shape
+    dh = cfg.head_dim_()
+    q = linear(params["wq"], x).reshape(B, T, cfg.n_heads, dh)
+    if _can_use_tuned_sdpa(cfg, causal=False):
+        out = flash_ops.sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
+    else:
+        out = _sdpa(q, enc_kv["k"], enc_kv["v"], None, cfg)
+    return linear(params["wo"], out.reshape(B, T, -1))
+
+
+def encode_cross_kv(params, enc_out, cfg):
+    B, S, _ = enc_out.shape
+    dh = cfg.head_dim_()
+    k = linear(params["wk"], enc_out).reshape(B, S, cfg.n_kv_heads, dh)
+    v = linear(params["wv"], enc_out).reshape(B, S, cfg.n_kv_heads, dh)
+    return {"k": k, "v": v}

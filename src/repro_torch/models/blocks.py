@@ -1,12 +1,14 @@
-"""Block assembly: attention + (mlp | moe).
+"""Block assembly: (attn | mla) + (mlp | moe).
 
 Layers are organised into *groups* (the repeating unit — one layer for
 homogeneous stacks) after an unrolled dense prefix (the first
 ``n_dense_layers`` of an MoE model use the dense FFN).  The reference
 stacks the groups' parameters and runs a ``lax.scan`` over them; here
 ``params["groups"]`` is a list of per-group parameter dicts and the
-stack is a Python loop over it.  Only ``attn`` stacks are ported:
-``model_zoo`` refuses every other config before it reaches this module.
+stack is a Python loop over it.  ``group_layout`` knows every stack the
+reference builds; the layers of plain attention and MLA are ported, and
+``model_zoo`` refuses the jamba and xLSTM stacks before they reach this
+module.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import init_mlp, init_norm, mlp, norm
 
@@ -22,10 +25,25 @@ from repro_torch.models.layers import init_mlp, init_norm, mlp, norm
 # ---------------------------------------------------------------------------
 # Group layout
 # ---------------------------------------------------------------------------
-def group_layout(cfg) -> Tuple[List[bool], int]:
-    """Returns (moe_flags, n_groups): one layer per group in an ``attn``
-    stack, after the dense prefix."""
-    return [cfg.moe is not None], cfg.n_layers - _n_dense(cfg)
+def group_layout(cfg) -> Tuple[List[str], List[bool], int]:
+    """Returns (kinds, moe_flags, n_groups) for the repeating group."""
+    if cfg.block_pattern == "jamba":
+        g = cfg.attn_every
+        kinds = ["attn" if i == cfg.attn_offset else "mamba"
+                 for i in range(g)]
+        moe_flags = [cfg.moe is not None and i % cfg.moe.every == 1
+                     for i in range(g)]
+        return kinds, moe_flags, cfg.n_layers // g
+    if cfg.block_pattern == "xlstm":
+        g = cfg.xlstm.slstm_every
+        kinds = ["slstm" if i == g - 1 else "mlstm" for i in range(g)]
+        return kinds, [False] * g, cfg.n_layers // g
+    return [_attn_kind(cfg)], [cfg.moe is not None], \
+        cfg.n_layers - _n_dense(cfg)
+
+
+def _attn_kind(cfg) -> str:
+    return "mla" if cfg.attn_type == "mla" else "attn"
 
 
 def _n_dense(cfg) -> int:
@@ -35,14 +53,28 @@ def _n_dense(cfg) -> int:
 # ---------------------------------------------------------------------------
 # Single layer
 # ---------------------------------------------------------------------------
-def init_layer(gen, cfg, use_moe: bool, dtype):
-    p: dict = {"norm1": init_norm(cfg, gen.device),
-               "mix": attn_mod.init_attention(gen, cfg, dtype)}
+def init_layer(gen, cfg, kind: str, use_moe: bool, dtype):
+    p: dict = {"norm1": init_norm(cfg, gen.device)}
+    if kind == "attn":
+        p["mix"] = attn_mod.init_attention(gen, cfg, dtype)
+    elif kind == "mla":
+        p["mix"] = mla_mod.init_mla(gen, cfg, dtype)
+    else:
+        raise ValueError(kind)
     if cfg.d_ff or use_moe:
         p["norm2"] = init_norm(cfg, gen.device)
         p["ffn"] = (moe_mod.init_moe(gen, cfg, dtype) if use_moe
                     else init_mlp(gen, cfg, dtype))
     return p
+
+
+def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
+    """Empty bf16 decode cache of one layer (the activations' type)."""
+    if kind == "attn":
+        return attn_mod.init_cache(cfg, batch, max_len, device)
+    if kind == "mla":
+        return mla_mod.init_mla_cache(cfg, batch, max_len, device)
+    raise ValueError(kind)
 
 
 def _ffn(params, x, cfg, use_moe: bool):
@@ -57,23 +89,36 @@ def _ffn(params, x, cfg, use_moe: bool):
     return x, aux
 
 
-def apply_layer(params, x, cfg, use_moe: bool, *, sin, cos,
+def apply_layer(params, x, cfg, kind: str, use_moe: bool, *, sin, cos,
                 make_cache_len: int = 0):
     """Full-sequence layer. Returns (x, cache, aux_loss)."""
     h = norm(params["norm1"], x, cfg)
-    y, cache = attn_mod.attention(params["mix"], h, cfg, sin=sin, cos=cos,
-                                  make_cache_len=make_cache_len)
+    if kind == "attn":
+        y, cache = attn_mod.attention(params["mix"], h, cfg, sin=sin,
+                                      cos=cos, make_cache_len=make_cache_len)
+    elif kind == "mla":
+        y, cache = mla_mod.mla_attention(params["mix"], h, cfg, sin=sin,
+                                         cos=cos,
+                                         make_cache_len=make_cache_len)
+    else:
+        raise ValueError(kind)
     x, aux = _ffn(params, x + y, cfg, use_moe)
     return x, cache, aux
 
 
-def apply_layer_decode(params, x, cfg, use_moe: bool, cache,
+def apply_layer_decode(params, x, cfg, kind: str, use_moe: bool, cache,
                        position, *, sin, cos):
     """Single-token layer step at an int or a (B,) tensor of per-row
     positions. Returns (x, cache, aux); the cache is updated in place."""
     h = norm(params["norm1"], x, cfg)
-    y, cache = attn_mod.attention_decode(params["mix"], h, cfg, cache,
-                                         position, sin=sin, cos=cos)
+    if kind == "attn":
+        y, cache = attn_mod.attention_decode(params["mix"], h, cfg, cache,
+                                             position, sin=sin, cos=cos)
+    elif kind == "mla":
+        y, cache = mla_mod.mla_decode(params["mix"], h, cfg, cache,
+                                      position, sin=sin, cos=cos)
+    else:
+        raise ValueError(kind)
     x, aux = _ffn(params, x + y, cfg, use_moe)
     return x, cache, aux
 
@@ -82,52 +127,56 @@ def apply_layer_decode(params, x, cfg, use_moe: bool, cache,
 # Group (repeating unit) and stack
 # ---------------------------------------------------------------------------
 def init_group(gen, cfg, dtype):
-    moe_flags, _ = group_layout(cfg)
-    return {f"l{i}": init_layer(gen, cfg, mf, dtype)
-            for i, mf in enumerate(moe_flags)}
+    kinds, moe_flags, _ = group_layout(cfg)
+    return {f"l{i}": init_layer(gen, cfg, kind, mf, dtype)
+            for i, (kind, mf) in enumerate(zip(kinds, moe_flags))}
+
+
+def _n_prefix(cfg) -> int:
+    return _n_dense(cfg) if cfg.block_pattern == "attn" else 0
 
 
 def init_stack(gen, cfg, dtype):
     """Per-group params + the unrolled dense prefix."""
-    _, n_groups = group_layout(cfg)
+    _, _, n_groups = group_layout(cfg)
     p = {"groups": [init_group(gen, cfg, dtype) for _ in range(n_groups)]}
-    if _n_dense(cfg):
+    if _n_prefix(cfg):
         # dense prefix uses the dense d_ff (no MoE)
-        p["prefix"] = [init_layer(gen, cfg, False, dtype)
-                       for _ in range(_n_dense(cfg))]
+        p["prefix"] = [init_layer(gen, cfg, _attn_kind(cfg), False, dtype)
+                       for _ in range(_n_prefix(cfg))]
     return p
 
 
 def init_stack_caches(cfg, batch: int, max_len: int, device):
     """Empty bf16 decode caches (the activations' type)."""
-    moe_flags, n_groups = group_layout(cfg)
-
-    def one():
-        return attn_mod.init_cache(cfg, batch, max_len, device)
-
-    out = {"groups": [{f"l{i}": one() for i in range(len(moe_flags))}
+    kinds, _, n_groups = group_layout(cfg)
+    out = {"groups": [{f"l{i}": init_layer_cache(cfg, kind, batch, max_len,
+                                                 device)
+                       for i, kind in enumerate(kinds)}
                       for _ in range(n_groups)]}
-    if _n_dense(cfg):
-        out["prefix"] = [one() for _ in range(_n_dense(cfg))]
+    if _n_prefix(cfg):
+        out["prefix"] = [init_layer_cache(cfg, _attn_kind(cfg), batch,
+                                          max_len, device)
+                         for _ in range(_n_prefix(cfg))]
     return out
 
 
 def apply_stack(params, x, cfg, *, sin, cos, make_cache_len: int = 0):
     """Returns (x, caches, aux)."""
-    moe_flags, _ = group_layout(cfg)
+    kinds, moe_flags, _ = group_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix_caches = []
     for lp in params.get("prefix", []):
-        x, c, a = apply_layer(lp, x, cfg, False, sin=sin, cos=cos,
-                              make_cache_len=make_cache_len)
+        x, c, a = apply_layer(lp, x, cfg, _attn_kind(cfg), False, sin=sin,
+                              cos=cos, make_cache_len=make_cache_len)
         prefix_caches.append(c)
         aux = aux + a
     group_caches = []
     for gp in params["groups"]:
         caches = {}
-        for i, mf in enumerate(moe_flags):
+        for i, (kind, mf) in enumerate(zip(kinds, moe_flags)):
             x, caches[f"l{i}"], a = apply_layer(
-                gp[f"l{i}"], x, cfg, mf, sin=sin, cos=cos,
+                gp[f"l{i}"], x, cfg, kind, mf, sin=sin, cos=cos,
                 make_cache_len=make_cache_len)
             aux = aux + a
         group_caches.append(caches)
@@ -141,15 +190,15 @@ def apply_stack(params, x, cfg, *, sin, cos, make_cache_len: int = 0):
 
 def apply_stack_decode(params, x, cfg, caches, position, *, sin, cos):
     """Returns (x, caches, aux); the caches are updated in place."""
-    moe_flags, _ = group_layout(cfg)
+    kinds, moe_flags, _ = group_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, c in zip(params.get("prefix", []), caches.get("prefix", [])):
-        x, _, a = apply_layer_decode(lp, x, cfg, False, c, position,
-                                     sin=sin, cos=cos)
+        x, _, a = apply_layer_decode(lp, x, cfg, _attn_kind(cfg), False, c,
+                                     position, sin=sin, cos=cos)
         aux = aux + a
     for gp, gc in zip(params["groups"], caches["groups"]):
-        for i, mf in enumerate(moe_flags):
-            x, _, a = apply_layer_decode(gp[f"l{i}"], x, cfg, mf,
+        for i, (kind, mf) in enumerate(zip(kinds, moe_flags)):
+            x, _, a = apply_layer_decode(gp[f"l{i}"], x, cfg, kind, mf,
                                          gc[f"l{i}"], position, sin=sin,
                                          cos=cos)
             aux = aux + a

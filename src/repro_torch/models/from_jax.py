@@ -1,10 +1,11 @@
 """The reference's parameter tree (as numpy arrays) -> the port's.
 
-The reference stacks its layer groups on a leading axis for its
-``lax.scan``; the port keeps a list of per-group trees.  Everything
-else maps one to one.  Norm parameters stay f32; every other tensor is
-stored in ``dtype`` (the model casts it to the activations' type at use,
-so bf16 storage equals the reference's f32 weights cast at use).
+The reference stacks its layer groups (and an encoder-decoder's
+encoder and decoder layers) on a leading axis for its ``lax.scan``; the
+port keeps a list of per-group (per-layer) trees.  Everything else maps
+one to one.  Norm parameters stay f32; every other tensor is stored in
+``dtype`` (the model casts it to the activations' type at use, so bf16
+storage equals the reference's f32 weights cast at use).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import torch
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.blocks import group_layout
 
-_F32_KEYS = ("norm1", "norm2", "final_norm", "q_norm", "k_norm")
+_F32_KEYS = ("norm1", "norm2", "norm3", "final_norm", "enc_norm",
+             "dec_norm", "q_norm", "k_norm", "kv_norm")
 
 
 def _convert(tree, dev, dtype, keep_f32: bool = False):
@@ -38,9 +40,15 @@ def params_from_numpy(tree, cfg, *, device=None, dtype=torch.float32):
     with every leaf converted to numpy.  Returns the port's tree on
     ``device`` (default: the first GPU)."""
     dev = resolve_device(device)
-    _, n_groups = group_layout(cfg)
-    stack = dict(tree["stack"])
-    stack["groups"] = [_index(stack["groups"], i) for i in range(n_groups)]
-    out = {k: v for k, v in tree.items() if k != "stack"}
-    out["stack"] = stack
+    out = dict(tree)
+    if cfg.is_encoder_decoder:
+        for key, n in (("enc_layers", cfg.n_enc_layers),
+                       ("dec_layers", cfg.n_layers)):
+            out[key] = [_index(tree[key], i) for i in range(n)]
+    else:
+        _, _, n_groups = group_layout(cfg)
+        stack = dict(tree["stack"])
+        stack["groups"] = [_index(stack["groups"], i)
+                           for i in range(n_groups)]
+        out["stack"] = stack
     return _convert(out, dev, dtype)

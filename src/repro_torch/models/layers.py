@@ -2,7 +2,9 @@
 
 Each function computes what its counterpart in the reference's
 ``models/layers.py`` computes, in the same types: norms in f32 with an
-f32 scale, matmul weights cast to the activations' type at use, the
+f32 scale (the mean summed in two fixed stages, the same bits for a
+row in a batch of any size), matmul weights cast to the
+activations' type at use, the
 embedding gathered in bf16, RoPE in f32 on split halves.  The
 reference's ``shard_act`` annotations have no counterpart on one GPU.
 """
@@ -50,12 +52,30 @@ def init_norm(cfg, device, dim: int = 0):
     return p
 
 
+def _mean_last(x):
+    """Mean over the last dim (keepdim) in two fixed stages: the sums of
+    64-wide slices, then their sum (the dim zero-padded to a multiple of
+    256).  A row's mean is then the same bits in a tensor of any number
+    of rows.  A one-stage reduction splits a row of 768 or more across
+    warps by the number of rows (on the GPU a row of a 4-row batch sums
+    in another order than alone), and the continuous engine's slot step
+    must give each row the bits of its solo step; in two stages every
+    row's first stage has many outputs and its second few values, so
+    neither stage's split depends on the row count
+    (``tests/test_torch_cuda.py::test_norm_rows_bitwise_on_gpu``)."""
+    n = x.shape[-1]
+    m = -(-n // 256) * 256
+    x = F.pad(x, (0, m - n))
+    return x.view(*x.shape[:-1], m // 64, 64).sum(-1).sum(
+        -1, keepdim=True) / n
+
+
 def norm(params, x, cfg):
     dtype = x.dtype
     x = x.float()
     if cfg.norm_type == "layernorm":
-        x = x - x.mean(-1, keepdim=True)
-    var = x.square().mean(-1, keepdim=True)
+        x = x - _mean_last(x)
+    var = _mean_last(x.square())
     x = x * torch.rsqrt(var + cfg.norm_eps)
     out = x * params["scale"].float()
     if cfg.norm_type == "layernorm":
@@ -67,7 +87,7 @@ def rms_norm_simple(x, scale, eps: float = 1e-6):
     """Scale-only RMS norm over the last dim (for QK-norm etc.)."""
     dtype = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    x = x * torch.rsqrt(_mean_last(x.square()) + eps)
     return (x * scale.float()).to(dtype)
 
 

@@ -1,11 +1,11 @@
 """ArchConfig -> model functions (init / forward / prefill / decode).
 
 A single functional interface over decoder-only LMs of plain attention
-layers (with dense or MoE FFNs).  Every other config is refused here:
-MLA, the jamba and xLSTM stacks and the encoder-decoder models come with
-their own slices.  Every entry runs on the device its parameters lie
-on; ``init`` puts them on the first GPU unless it is given
-``device="cpu"``.
+or MLA layers (with dense or MoE FFNs, token or stub-embedding inputs)
+and encoder-decoder models.  The jamba and xLSTM stacks are refused
+here: they come with their own slices.  Every entry runs on the device
+its parameters lie on; ``init`` puts them on the first GPU unless it is
+given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -15,20 +15,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.is_encoder_decoder:
-        what = "encoder-decoder models are"
-    elif cfg.block_pattern != "attn":
-        what = f"{cfg.block_pattern} stacks are"
-    elif cfg.attn_type == "mla":
-        what = "MLA attention is"
-    else:
-        return
-    raise NotImplementedError(f"{cfg.name}: {what} not ported yet "
-                              f"(ROADMAP queue 1, item 6)")
+    if cfg.block_pattern != "attn" and not cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.block_pattern} stacks are not ported yet "
+            f"(ROADMAP queue 1, item 6)")
 
 
 def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> Any:
@@ -38,35 +33,67 @@ def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> Any:
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        return encdec_mod.init_encdec(gen, cfg, torch.bfloat16)
     return tf_mod.init_lm(gen, cfg, torch.bfloat16)
 
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]):
     """Training/prefill forward. Returns (logits, aux_loss)."""
     _check_ported(cfg)
-    logits, _, aux = tf_mod.lm_forward(params, batch["tokens"], cfg)
+    if cfg.is_encoder_decoder:
+        enc_out = encdec_mod.encode(params, batch["frames"], cfg)
+        logits, _ = encdec_mod.decode_train(params, enc_out,
+                                            batch["dec_tokens"], cfg)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+    inputs = batch.get("embeds", batch.get("tokens"))
+    logits, _, aux = tf_mod.lm_forward(params, inputs, cfg)
     return logits, aux
 
 
 def prefill(cfg: ArchConfig, params, batch, cache_len: int):
-    """Prefill pass that also materialises decode caches."""
+    """Prefill pass that also materialises decode caches.
+
+    Encoder-decoder: as in the reference, the decoder's prompt is run
+    teacher-forced but its self-attention K/V are not written: the
+    caches are ``init_dec_caches``' (empty self-attention caches, the
+    encoder's cross K/V)."""
     _check_ported(cfg)
-    logits, caches, _ = tf_mod.lm_forward(params, batch["tokens"], cfg,
+    if cfg.is_encoder_decoder:
+        enc_out = encdec_mod.encode(params, batch["frames"], cfg)
+        logits, _ = encdec_mod.decode_train(params, enc_out,
+                                            batch["dec_tokens"], cfg)
+        caches = encdec_mod.init_dec_caches(
+            params, enc_out, cfg, batch["dec_tokens"].shape[0], cache_len)
+        return logits, caches
+    inputs = batch.get("embeds", batch.get("tokens"))
+    logits, caches, _ = tf_mod.lm_forward(params, inputs, cfg,
                                           make_cache_len=cache_len)
     return logits, caches
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
-                device=None):
-    """Empty bf16 decode caches on ``device`` (default: the first GPU)."""
+                device=None, params=None, enc_out=None):
+    """Empty bf16 decode caches on ``device`` (default: the first GPU).
+    Encoder-decoder: ``params`` and ``enc_out`` are required, and the
+    caches lie on ``enc_out``'s device."""
     _check_ported(cfg)
+    if cfg.is_encoder_decoder:
+        if params is None or enc_out is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder's caches "
+                             f"need params= and enc_out=")
+        return encdec_mod.init_dec_caches(params, enc_out, cfg, batch,
+                                          max_len)
     return tf_mod.init_lm_caches(cfg, batch, max_len,
                                  resolve_device(device))
 
 
 def decode_step(cfg: ArchConfig, params, token, caches, position):
-    """One-token decode at ``position``: an int, or a (B,) int tensor of
-    per-row positions.  Returns (logits, caches); the caches are updated
-    in place."""
+    """One-token decode at ``position``: an int, or (decoder-only) a (B,)
+    int tensor of per-row positions.  Returns (logits, caches); the
+    caches are updated in place."""
     _check_ported(cfg)
+    if cfg.is_encoder_decoder:
+        return encdec_mod.decode_step(params, token, cfg, caches, position)
     return tf_mod.lm_decode_step(params, token, cfg, caches, position)

@@ -9,6 +9,17 @@ from repro_torch.models.layers import (embed, init_embedding, init_norm,
                                        unembed)
 
 
+def _rope_dim(cfg) -> int:
+    if cfg.attn_type == "mla" and cfg.mla is not None:
+        return cfg.mla.qk_rope_head_dim
+    return cfg.head_dim_()
+
+
+def _has_attn(cfg) -> bool:
+    kinds, _, _ = blocks.group_layout(cfg)
+    return any(k in ("attn", "mla") for k in kinds)
+
+
 def init_lm(gen, cfg, dtype):
     p = {
         "embed": init_embedding(gen, cfg, dtype),
@@ -20,14 +31,23 @@ def init_lm(gen, cfg, dtype):
     return p
 
 
+def _inputs_to_h(params, inputs, cfg):
+    if inputs.is_floating_point():
+        # modality-frontend stub: precomputed patch/frame embeddings
+        return inputs
+    return embed(params["embed"], inputs, cfg)
+
+
 def lm_forward(params, inputs, cfg, *, make_cache_len: int = 0):
-    """inputs: (B, T) int tokens.
+    """inputs: (B, T) int tokens or (B, T, d) stub embeddings.
 
     Returns (logits, caches, aux_loss); activations are bf16."""
-    x = embed(params["embed"], inputs, cfg).to(torch.bfloat16)
-    T = x.shape[1]
-    sin, cos = rope_table(cfg.head_dim_(), T, cfg.rope_theta,
-                          torch.arange(T, device=x.device))
+    x = _inputs_to_h(params, inputs, cfg).to(torch.bfloat16)
+    sin = cos = None
+    if _has_attn(cfg):
+        T = x.shape[1]
+        sin, cos = rope_table(_rope_dim(cfg), T, cfg.rope_theta,
+                              torch.arange(T, device=x.device))
     x, caches, aux = blocks.apply_stack(params["stack"], x, cfg, sin=sin,
                                         cos=cos,
                                         make_cache_len=make_cache_len)
@@ -42,19 +62,22 @@ def init_lm_caches(cfg, batch: int, max_len: int, device):
 
 
 def lm_decode_step(params, inputs, cfg, caches, position):
-    """inputs: (B, 1) token ids; position: an int, or a (B,) int tensor
-    of per-row positions.
+    """inputs: (B, 1) token ids (or (B, 1, d) embeds); position: an int,
+    or a (B,) int tensor of per-row positions.
 
     Returns (logits (B, 1, V), caches); the caches are updated in place."""
-    x = embed(params["embed"], inputs, cfg).to(torch.bfloat16)
-    if isinstance(position, int):
-        pos = torch.tensor([position], device=x.device)
-        sin, cos = rope_table(cfg.head_dim_(), 1, cfg.rope_theta, pos)
-    else:
-        # one (1, 1, dh/2) table a row, broadcast over its heads
-        sin, cos = rope_table(cfg.head_dim_(), 1, cfg.rope_theta,
-                              position.to(x.device))
-        sin, cos = sin[:, None, None, :], cos[:, None, None, :]
+    x = _inputs_to_h(params, inputs, cfg).to(torch.bfloat16)
+    sin = cos = None
+    if _has_attn(cfg):
+        dim = _rope_dim(cfg)
+        if isinstance(position, int):
+            pos = torch.tensor([position], device=x.device)
+            sin, cos = rope_table(dim, 1, cfg.rope_theta, pos)
+        else:
+            # one (1, 1, dim/2) table a row, broadcast over its heads
+            sin, cos = rope_table(dim, 1, cfg.rope_theta,
+                                  position.to(x.device))
+            sin, cos = sin[:, None, None, :], cos[:, None, None, :]
     x, caches, _ = blocks.apply_stack_decode(params["stack"], x, cfg,
                                              caches, position, sin=sin,
                                              cos=cos)

@@ -1,9 +1,10 @@
 """The port's continuous-batching engine (``repro_torch.serve.continuous``)
 against the JAX reference's contracts, on the CPU.
 
-The reference's ``tests/test_continuous.py`` at an ``attn`` config:
-kimi-k2 ``reduced()`` (MoE, so K8's plain version runs), prompt 8, six
-new tokens.  Join/evict is bitwise a solo ``generate``; the iteration
+The reference's ``tests/test_continuous.py`` at two configs: kimi-k2
+``reduced()`` (attention + MoE, so K8's plain version runs) and the
+reference's own fixture config, minicpm3-4b ``reduced()`` (MLA); prompt
+8, six new tokens.  Join/evict is bitwise a solo ``generate``; the iteration
 steppers (listrank, lbm, dither) are bitwise their solo ``run_one``
 (lbm held to solo lbm stepping); a fresh scheduler places the engine's
 lanes with zero probes; preemption at iteration boundaries, the
@@ -51,6 +52,7 @@ from repro_torch.workloads import requests as adapters
 
 CPU = torch.device("cpu")
 KIMI = "kimi-k2-1t-a32b"
+MINICPM = "minicpm3-4b"
 PROMPT_LEN, NEW_TOKENS = 8, 6
 CACHE_LEN = PROMPT_LEN + NEW_TOKENS + 1
 BF16_ATOL = 0.25
@@ -64,16 +66,17 @@ def _fresh_state():
     clear_calibration_cache()
 
 
-@pytest.fixture(scope="module")
-def lm():
-    """One reduced arch + registered continuous adapter per module: the
-    stepper is shared state (every request of the workload stacks into
-    one engine)."""
-    cfg = registry.get(KIMI).reduced()
+@pytest.fixture(scope="module", params=[KIMI, MINICPM])
+def lm(request):
+    """One reduced arch + registered continuous adapter per module and
+    arch: the stepper is shared state (every request of the workload
+    stacks into one engine).  kimi-k2 (attention + MoE) and minicpm3-4b
+    (MLA, the reference's own fixture config)."""
+    cfg = registry.get(request.param).reduced()
     params = model_zoo.init(cfg, 0, device=CPU)
     wl = adapters.make_continuous_lm_adapter(
         cfg, params, prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
-        name="serve-lm-cb/test")
+        name=f"serve-lm-cb/test-{request.param}")
     assert adapters.wait_precompiled(timeout=300)
     yield cfg, params, wl
     adapters.unregister(wl)
@@ -683,11 +686,13 @@ def test_slot_step_is_one_batched_decode_step(lm):
     step = make_slot_step(cfg)
     state["pos"][:] = PROMPT_LEN             # past the prefill's tokens
     caches = state["caches"]
-    k0 = caches["prefix"][0]["k"].clone()
+    before = [t.clone() for t in leaves(caches)]
     toks, out = step(params, state["tokens"], caches, state["pos"])
     assert out is caches and toks.shape == (stepper.n_slots,)
     assert toks.dtype == torch.int32
-    assert not torch.equal(caches["prefix"][0]["k"], k0)
+    # every layer's cache (K/V, or MLA's latent ckv / kr) got its row
+    assert all(not torch.equal(a, b) for a, b in zip(leaves(caches),
+                                                     before))
 
 
 # ---------------------------------------------------------------------------

@@ -1260,18 +1260,20 @@ def _accel_group(gpu):
 
 
 @pytest.mark.needs_cuda
-def test_continuous_lm_engine_on_gpu(gpu, fresh_serving):
-    """kimi-k2 reduced() on the card through the engine: a burst of
-    batch-1 requests stacks into slot-batched steps, each request's
-    tokens bitwise a solo ``generate`` of its prompt at B = 1, every
-    K8 launch on its tensor-core entry."""
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "minicpm3-4b"])
+def test_continuous_lm_engine_on_gpu(gpu, fresh_serving, arch):
+    """kimi-k2 (attention + MoE) and minicpm3-4b (MLA) reduced() on the
+    card through the engine: a burst of batch-1 requests stacks into
+    slot-batched steps, each request's tokens bitwise a solo
+    ``generate`` of its prompt at B = 1, every K8 launch (kimi-k2's) on
+    its tensor-core entry."""
     from repro_torch.configs import registry
     from repro_torch.models import model_zoo
     from repro_torch.serve import scheduler as sched_mod
     from repro_torch.serve.serve_step import generate
     from repro_torch.workloads import requests as adapters
 
-    cfg = registry.get("kimi-k2-1t-a32b").reduced()
+    cfg = registry.get(arch).reduced()
     params = model_zoo.init(cfg, 0, device=gpu)
     wl = adapters.make_continuous_lm_adapter(
         cfg, params, prompt_len=16, new_tokens=4, n_slots=4,
@@ -1290,7 +1292,8 @@ def test_continuous_lm_engine_on_gpu(gpu, fresh_serving):
             want = generate(cfg, params, prompt, 4, cache_len=21).cpu()
             assert torch.equal(out, want), s
         assert 0 < snap["engine_steps"] < 6 * 4
-        assert entries["gmm_wgmma_bf16"] > 0 and not entries["gmm_fma_bf16"]
+        assert not entries["gmm_fma_bf16"]
+        assert (entries["gmm_wgmma_bf16"] > 0) == (cfg.moe is not None)
     finally:
         adapters.unregister(wl)
 
@@ -1318,3 +1321,189 @@ def test_iteration_steppers_on_gpu(gpu, fresh_serving, wl, payload):
             assert out.device == solo.device and torch.equal(out, solo), s
         else:
             np.testing.assert_array_equal(out, solo)
+
+
+# ---------------------------------------------------------------------------
+# the model families of the MLA and encoder-decoder slice
+# ---------------------------------------------------------------------------
+# K8 at deepseek-v2-lite-16b's shapes: 64 experts, expert width 1408,
+# d_model 2048; C = 4 x 120 at a 4 x 1024 prefill, 4 x 30 in its tail
+# pass, 4 at a B = 4 decode step
+DEEPSEEK_GMM = [("prefill up", 480, 2048, 1408),
+                ("prefill down", 480, 1408, 2048),
+                ("prefill tail up", 120, 2048, 1408),
+                ("prefill tail down", 120, 1408, 2048),
+                ("decode up", 4, 2048, 1408), ("decode down", 4, 1408, 2048)]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("label,C,D,F", DEEPSEEK_GMM)
+def test_gmm_at_deepseek_shapes_on_gpu(gpu, label, C, D, F):
+    gen = torch.Generator(device=gpu).manual_seed(C + D)
+    x = torch.randn((64, C, D), generator=gen, device=gpu).bfloat16()
+    w = (torch.randn((64, D, F), generator=gen, device=gpu)
+         * D ** -0.5).bfloat16()
+    common.reset_launches()
+    out = gmm_cuda(x, w)
+    assert common.entry_counts()["gmm_wgmma_bf16"] == 1
+    torch.testing.assert_close(out.float(), gmm_torch(x, w).float(),
+                               rtol=1e-2, atol=1e-2, msg=lambda m:
+                               f"{label}: {m}")
+
+
+# K7's full (causal=False) route at whisper-tiny's shapes: 4 rows x 6
+# heads, d = 64, 1500 encoder frames: the encoder (T = S = 1500), the
+# teacher-forced cross-attention (T = 448) and a decode step's (T = 1)
+WHISPER_ATTN = [("encoder", 1500, 1500), ("cross-attention", 448, 1500),
+                ("decode cross-attention", 1, 1500)]
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("label,T,S", WHISPER_ATTN)
+def test_flash_attention_full_route_at_whisper_shapes_on_gpu(gpu, label, T,
+                                                             S):
+    gen = torch.Generator(device=gpu).manual_seed(T + S)
+    q = torch.randn((24, T, 64), generator=gen, device=gpu).bfloat16()
+    k, v = (torch.randn((24, S, 64), generator=gen, device=gpu).bfloat16()
+            for _ in range(2))
+    common.reset_launches()
+    out = flash_attention_cuda(q, k, v, False)
+    assert common.entry_counts()["flash_attention_wgmma_bf16"] == 1
+    torch.testing.assert_close(out.float(),
+                               attention_ref(q, k, v, False).float(),
+                               rtol=1e-2, atol=1e-2, msg=lambda m:
+                               f"{label}: {m}")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("d", [256, 384, 512, 768, 2048, 2560, 7168])
+def test_norm_rows_bitwise_on_gpu(gpu, d):
+    """On the card a row's norm is the same bits in a 4- or 8-row batch
+    as alone (every norm width of the ported configs): the mean is
+    summed in two fixed stages, where a one-stage reduction kernel
+    splits a 2560-wide row across warps by the number of rows
+    (minicpm3-4b's slot step missed bit-identity by that)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers
+
+    cfg = registry.get("minicpm3-4b")
+    gen = torch.Generator(device=gpu).manual_seed(d)
+    for rows in (4, 8) * 10:
+        x = torch.randn((rows, 1, d), generator=gen, device=gpu).bfloat16()
+        scale = torch.rand(d, generator=gen, device=gpu)
+        for c in (cfg, cfg.replace(norm_type="layernorm")):
+            p = {"scale": scale, "bias": scale} \
+                if c.norm_type == "layernorm" else {"scale": scale}
+            batch = layers.norm(p, x, c)
+            for b in range(rows):
+                assert torch.equal(batch[b:b + 1],
+                                   layers.norm(p, x[b:b + 1], c))
+        qk = layers.rms_norm_simple(x, scale)
+        for b in range(rows):
+            assert torch.equal(qk[b:b + 1],
+                               layers.rms_norm_simple(x[b:b + 1], scale))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b"])
+def test_mla_slot_step_bitwise_b1_steps_on_gpu(gpu, arch):
+    """The MLA model's 4-slot decode step (one ``decode_step`` at a (4,)
+    position tensor) against four B = 1 steps at each row's ``int``
+    position, teacher-forced from B = 1 prefills: logits and latent
+    caches bitwise, on the card."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    from repro_torch.models.param import leaves
+    from repro_torch.serve.continuous import _tree_map
+
+    cfg = registry.get(arch).reduced()
+    params = model_zoo.init(cfg, 0, device=gpu)
+    gen = torch.Generator(device=gpu).manual_seed(7)
+    P, L, n = 12, 24, 6
+    prompts = torch.randint(0, cfg.vocab_size, (4, P), generator=gen,
+                            device=gpu)
+    toks = torch.randint(0, cfg.vocab_size, (4, n), generator=gen,
+                         device=gpu)
+    with torch.inference_mode():
+        rows = [model_zoo.prefill(cfg, params, {"tokens": prompts[b:b + 1]},
+                                  cache_len=L)[1] for b in range(4)]
+        slots = _tree_map(lambda *a: torch.cat(a, 0).clone(), *rows)
+        pos = torch.full((4,), P, dtype=torch.long, device=gpu)
+        for t in range(n):
+            lg, _ = model_zoo.decode_step(cfg, params, toks[:, t:t + 1],
+                                          slots, pos)
+            for b in range(4):
+                one, _ = model_zoo.decode_step(cfg, params,
+                                               toks[b:b + 1, t:t + 1],
+                                               rows[b], P + t)
+                assert torch.equal(lg[b:b + 1], one), (t, b)
+            pos += 1
+        for b in range(4):
+            got = _tree_map(lambda a: a[b:b + 1], slots)
+            assert all(torch.equal(x, y) for x, y in zip(leaves(got),
+                                                         leaves(rows[b])))
+
+
+@pytest.mark.needs_cuda
+def test_deepseek_greedy_tokens_kernel_path_against_plain_path(gpu):
+    """deepseek-v2-lite reduced(): ``generate`` through K8 gives the
+    plain path's tokens under the margin rule; K8 launches 3 matmuls x
+    2 passes in each of its 3 MoE layers, at prefill and each step."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serve_step import generate
+
+    cfg = registry.get("deepseek-v2-lite-16b").reduced()
+    params = model_zoo.init(cfg, 0, device=gpu)
+    gen = torch.Generator(device=gpu).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=gpu,
+                           generator=gen)
+    common.reset_launches()
+    out = generate(cfg, params, prompt, 8)
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    assert common.launch_counts()["gmm"] == 6 * n_moe * 9
+    assert common.launch_counts()["flash_attention"] == 0
+    assert common.entry_counts()["gmm_wgmma_bf16"] == 6 * n_moe * 9
+    with plain_kernels():
+        plain, gaps, _ = greedy_with_gaps(cfg, params, prompt, 8)
+    check_tokens(out, plain, gaps)
+
+
+@pytest.mark.needs_cuda
+def test_whisper_on_gpu_launches_the_full_route(gpu):
+    """whisper-tiny reduced() on the card: ``encode`` and
+    ``decode_train`` launch K7 (full route in the encoder and the
+    cross-attention, causal in the decoder's self-attention) on its
+    tensor-core entry; decode steps (K7 at T = 1 against the frames)
+    give ``decode_train``'s logits at the bf16 model tolerance; the
+    same run with K7's plain version agrees at that tolerance."""
+    from repro_torch.configs import registry
+    from repro_torch.models import encdec, model_zoo
+
+    cfg = registry.get("whisper-tiny").reduced()
+    params = model_zoo.init(cfg, 0, device=gpu)
+    gen = torch.Generator(device=gpu).manual_seed(2)
+    frames = torch.randn((2, 100, cfg.d_model), generator=gen,
+                         device=gpu).bfloat16()
+    dec = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+                        device=gpu)
+    with torch.inference_mode():
+        common.reset_launches()
+        enc = encdec.encode(params, frames, cfg)
+        full, _ = encdec.decode_train(params, enc, dec, cfg)
+        assert common.launch_counts()["flash_attention"] == \
+            cfg.n_enc_layers + 2 * cfg.n_layers
+        c = model_zoo.init_caches(cfg, 2, 12, params=params, enc_out=enc)
+        common.reset_launches()
+        for t in range(12):
+            lg, c = model_zoo.decode_step(cfg, params, dec[:, t:t + 1], c, t)
+            torch.testing.assert_close(lg[:, 0].float(), full[:, t].float(),
+                                       atol=0.25, rtol=0.1)
+        assert common.launch_counts()["flash_attention"] == 12 * cfg.n_layers
+        assert common.entry_counts()["flash_attention_wgmma_bf16"] \
+            == 12 * cfg.n_layers
+        with plain_kernels():
+            plain, _ = model_zoo.forward(cfg, params, {"frames": frames,
+                                                       "dec_tokens": dec})
+    torch.testing.assert_close(full.float(), plain.float(), atol=0.25,
+                               rtol=0.1)

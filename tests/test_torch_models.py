@@ -139,6 +139,26 @@ def test_norm_matches_reference(norm_type):
                                       jnp.asarray(p["scale"])))
 
 
+@pytest.mark.parametrize("d", [256, 768, 2560, 7168])
+def test_norms_of_a_batch_are_each_rows_norm_bitwise(d):
+    """A row's norm is the same bits in a batch of 4 rows as alone (the
+    mean is summed in two fixed stages), as the continuous
+    engine's slot step needs; 7168 = kimi-k2's d_model."""
+    _, cfg = _kimi()
+    x = torch.randn((4, 1, d), generator=torch.Generator().manual_seed(d),
+                    dtype=torch.float32).bfloat16()
+    p = {"scale": torch.rand(d, generator=torch.Generator().manual_seed(1))}
+    for c in (cfg, cfg.replace(norm_type="layernorm")):
+        q = dict(p, bias=torch.rand(d)) if c.norm_type == "layernorm" else p
+        batch = layers.norm(q, x, c)
+        for b in range(4):
+            assert torch.equal(batch[b:b + 1], layers.norm(q, x[b:b + 1], c))
+    batch = layers.rms_norm_simple(x, p["scale"])
+    for b in range(4):
+        assert torch.equal(batch[b:b + 1],
+                           layers.rms_norm_simple(x[b:b + 1], p["scale"]))
+
+
 def test_rope_matches_reference():
     pos = np.array([0, 3, 17, 1000], dtype=np.int32)
     sin, cos = layers.rope_table(32, 0, 10000.0, _t(pos))
@@ -500,9 +520,67 @@ def test_serve_launcher_needs_a_gpu_or_an_explicit_cpu():
 
 
 def test_unported_kinds_raise():
-    for arch in ("xlstm-350m", "minicpm3-4b", "jamba-1.5-large-398b"):
+    for arch in ("xlstm-350m", "jamba-1.5-large-398b"):
+        cfg = registry.get(arch).reduced()
         with pytest.raises(NotImplementedError, match="not ported"):
-            model_zoo.init(registry.get(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        model_zoo.init(registry.get("whisper-tiny").reduced(),
-                       device="cpu")
+            model_zoo.init(cfg, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match=f"{cfg.block_pattern} stacks"):
+            model_zoo.forward(cfg, {}, {"tokens": torch.zeros((1, 2))})
+
+
+def test_embeds_of_tokens_equal_the_tokens():
+    """The embeddings of a token batch, given as ``embeds``, give the
+    tokens' logits bitwise (forward, prefill and a decode step): the
+    float input path only skips the embedding lookup."""
+    _, cfg = _kimi()
+    tree = model_zoo.init(cfg, 1, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(5))
+    emb = layers.embed(tree["embed"], toks, cfg)
+    with torch.inference_mode():
+        a, _ = model_zoo.forward(cfg, tree, {"tokens": toks})
+        b, _ = model_zoo.forward(cfg, tree, {"embeds": emb, "tokens": toks})
+        assert emb.dtype == torch.bfloat16 and torch.equal(a, b)
+        _, ct = model_zoo.prefill(cfg, tree, {"tokens": toks[:, :8]}, 9)
+        _, ce = model_zoo.prefill(cfg, tree, {"embeds": emb[:, :8]}, 9)
+        st, _ = model_zoo.decode_step(cfg, tree, toks[:, 8:], ct, 8)
+        se, _ = model_zoo.decode_step(cfg, tree, emb[:, 8:], ce, 8)
+    assert torch.equal(st, se)
+
+
+def test_stub_embeddings_match_reference(monkeypatch):
+    """A float (B, T, d) input is taken as precomputed embeddings (the
+    reference's frontend stub, ``transformer._inputs_to_h``):
+    ``forward`` and ``prefill`` read ``batch["embeds"]`` before
+    ``batch["tokens"]``, and a decode step takes a (B, 1, d) embedding.
+    chameleon-34b's reduced config (``frontend="vq_stub"``) against the
+    reference's logits at the bf16 model tolerance."""
+    monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION", '{"impl": "xla_ref"}')
+    arch = "chameleon-34b"
+    jcfg = jax_registry.get(arch).reduced()
+    cfg = registry.get(arch).reduced()
+    assert cfg.frontend == "vq_stub" and cfg.qk_norm
+    jtree, tree = _pair(jcfg, torch.bfloat16)
+    rng = np.random.default_rng(12)
+    B, T = 2, 16
+    emb = rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)
+    eb = _t(emb).bfloat16()
+    jeb = jnp.asarray(emb, jnp.bfloat16)
+    with jax.disable_jit():
+        jlog, _ = jax_zoo.forward(jcfg, jtree, {"embeds": jeb})
+        jpre, jc = jax_zoo.prefill(jcfg, jtree, {"embeds": jeb[:, :T - 1]},
+                                   cache_len=T)
+        jstep, _ = jax_zoo.decode_step(jcfg, jtree, jeb[:, T - 1:], jc,
+                                       jnp.int32(T - 1))
+    with torch.inference_mode():
+        log, aux = model_zoo.forward(cfg, tree, {"embeds": eb})
+        pre, c = model_zoo.prefill(cfg, tree, {"embeds": eb[:, :T - 1]},
+                                   cache_len=T)
+        step, _ = model_zoo.decode_step(cfg, tree, eb[:, T - 1:], c, T - 1)
+    assert log.shape == (B, T, cfg.vocab_size)
+    assert bool(torch.isfinite(log.float()).all())
+    for got, want, what in [(log, jlog, "forward"), (pre, jpre, "prefill"),
+                            (step, jstep, "decode step")]:
+        np.testing.assert_allclose(_np(got), _np(want), atol=BF16_ATOL,
+                                   rtol=BF16_RTOL, err_msg=what)
