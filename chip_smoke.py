@@ -31,7 +31,14 @@
    K=15), hist (2^26 keys, 256 bins), spmv (n=8192), bilateral
    (3600x3600, radius 7) and sort (2^24 keys, 64 bins) cold, warm,
    warm under ``torch.profiler`` (the GPU's busy share) and with a
-   forced split that puts work on the CPU, then sort's leaf sorter
+   forced split that puts an eighth of the work on the CPU, the card's
+   share sized to take at least ``FORCED_CARD_S`` (a finer chunk grid
+   until a card-alone call's measured chunk time says it does; hist
+   forced at 2^27 keys, sort at 1024 bins; spmv, one chunk a share,
+   packs its card share anew in that call and the forced one, and is
+   sized from its time a unit), the line printing the host
+   lane's first chunk start and the card lane's last chunk end, then
+   sort's leaf sorter
    (``sort leaf``: the bitonic kernel over the keys in 1024-wide rows);
    checks every value against a reference, and checks that every
    kernel on the path was launched, K1, K2, K3, K5 and K6 through
@@ -103,6 +110,31 @@
    rtol 0.1), K7's full route launched at T = S = 1500, T = 448 and
    T = 1 against S = 1500, every launch held against its plain version,
    K7's rows at the three shapes beside SDPA.
+   Then the recurrent families: (d) xlstm-350m, full width and all 24
+   layers (21 mLSTM, 3 sLSTM; no kernel of the port: the reference
+   computes it in plain ``jnp``), greedy ``generate`` at 4 x 1024 + 16
+   (prefill and step times, peak memory, the GPU's idle share in a
+   profiled step and a profiled 4-slot step), the gap of 16
+   teacher-forced decode steps to the forward's logits (printed: at
+   full width the reference itself misses atol 0.25), the chunkwise
+   and recurrent mLSTM forms in f32 at its head shapes (atol 2e-5, rtol
+   2e-4) and the reference's own decode-consistency test config (atol
+   0.25) on the card, the continuous engine (8
+   batch-1 requests into 4 slots, tokens bitwise a solo ``generate``,
+   the 4-slot step's logits bitwise four B = 1 steps') and
+   ``launch/serve.py --arch xlstm-350m --full --stream --continuous``
+   (1 s at 4 req/s, 4 new tokens: the engine's priors put its decode
+   lane on the CPU);
+   (e) jamba-1.5-large at full width, cut to one group's first five
+   layers (4 mamba, 2 of them MoE; attention with the dense MLP; ~24 B
+   parameters, ~48 GB in bf16), greedy ``generate`` at 4 x 1024 + 16:
+   K7 (64/8 heads, d = 128, causal) held against its plain version at
+   its one prefill launch, K7 and K8 on their tensor-core entries, K8's
+   launches per prefill and per step, the tokens against the plain path
+   under the margin rule, the decode steps' gap to the forward
+   (printed), its mamba layer's full and decode forms in f32 (1e-5,
+   1e-4), K7's row at the prefill shape beside SDPA and K8's at C = 640
+   and C = 4 on the model's expert weights beside ``torch.bmm``.
 7. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
    workloads at both of the paper's ratios (10 and 3.9) on the
    simulated pair on the GPU (``force_simulated``), a cold pass (its
@@ -221,6 +253,18 @@ SPMV_N, SPMV_DENSITY = 8192, 0.01
 SORT_N, SORT_BINS, SORT_TILE = 1 << 24, 64, 1024
 BILAT_SIZE, BILAT_SIGMA_S, BILAT_SIGMA_R, BILAT_RADIUS = 3600, 3.0, 30.0, 7
 BILAT_BAND = 64       # rows held against the direct (exp) filter, per edge
+# a forced split's card share must outlast the host lane's start: the
+# host lane's thread needs the interpreter lock while the card lane's
+# thread launches, and a thread waiting for it gets it after at most a
+# switch interval (5 ms) at each of its two handoffs (the thread's
+# start, its first chunk).  Each forced call's card share is sized from
+# a measured card time to at least twice that
+FORCED_CARD_S = 4 * sys.getswitchinterval()
+# the forced calls' finer grids need more units than the main calls
+# have: hist twice the keys in 4096 units (its own calibration key),
+# sort its keys in 1024 bins
+HIST_FORCED_N, HIST_FORCED_UNITS = 2 * HIST_N, 4096
+SORT_FORCED_BINS = 1024
 # the other eight Table-1 workloads on the real pair; concomp is kept
 # small: its host BFS and union-find merge are Python loops
 TABLE1_SIZES = {
@@ -888,11 +932,21 @@ def overlap_s(trace) -> float:
                - max(lo for lo, _ in spans.values()))
 
 
-def report(label, out) -> None:
+def lanes_s(trace):
+    """(the host lane's first chunk start, the card lane's last chunk
+    end), seconds since the call's start; None for a lane that ran no
+    chunk."""
+    starts = [r.t_start for r in trace.records if r.group == "host"]
+    ends = [r.t_end for r in trace.records if r.group == "accel"]
+    return (min(starts) if starts else None, max(ends) if ends else None)
+
+
+def report(label, out, lanes: bool = False) -> None:
     """The call's split and the paper's metrics.  A call with no chunk
     trace (the task-graph workloads, lbm's plane split) reports its
     plan's units as the split, mode ``none``, and no makespan or
-    overlap."""
+    overlap.  ``lanes``: also the host lane's first chunk start and the
+    card lane's last chunk end (the forced calls' overlap check)."""
     r, trace = out.result, out.trace
     if trace is None:
         split = dict(zip(r.busy_times, out.plan.units))
@@ -901,6 +955,11 @@ def report(label, out) -> None:
         split = {g: trace.group_units.get(g, 0) for g in r.busy_times}
         mode = trace.mode
         makespan, overlap = repr(trace.makespan), repr(overlap_s(trace))
+    extra = ""
+    if lanes:
+        host_start, card_end = lanes_s(trace)
+        extra = (f" host_first_start_s={host_start!r} "
+                 f"card_last_end_s={card_end!r}")
     print(f"hybrid {label}: mode={mode} split={split} "
           f"plan={out.plan.units} chunks={r.n_chunks} steals={r.steals} "
           f"hybrid_time_s={r.hybrid_time!r} "
@@ -908,7 +967,7 @@ def report(label, out) -> None:
           f"gain={r.gain!r} idle={r.idle_fracs} "
           f"resource_efficiency={r.resource_efficiency!r} "
           f"analytic_s={r.analytic_time!r} "
-          f"overlap_s={overlap}")
+          f"overlap_s={overlap}{extra}")
     if split.get("host", 0) == 0:
         print(f"hybrid {label}: finding: the host group ran 0 units")
 
@@ -1059,13 +1118,72 @@ def hybrid_phase(torch, np):
         else:
             torch.testing.assert_close(value, reference, rtol=tol, atol=tol,
                                        msg=lambda m: f"{label}: {m}")
-        report(label, out)
+        report(label, out, lanes=forced)
         print(f"hybrid {label}: wall_s={wall!r} value ok (tol {tol})")
         if forced and not (out.trace.group_units.get("host", 0) > 0
                            and overlap_s(out.trace) > 0):
+            host_start, card_end = lanes_s(out.trace)
             raise AssertionError(f"{label}: the host lane did not run "
-                                 f"concurrently with the card")
+                                 f"concurrently with the card (host lane's "
+                                 f"first start {host_start!r} s, card "
+                                 f"lane's last end {card_end!r} s)")
         return out
+
+    grids = {ex.n_chunks: ex}
+
+    def forced(label, call, units, runner, cold=None):
+        """A forced split: the host lane takes an eighth of the units,
+        and the card's share is sized from a measured card time to take
+        at least ``FORCED_CARD_S``.  The measurement: a card-alone call
+        (``call(executor, [units, 0])``) at the main grid, then at
+        grids twice as fine until the card's share of the forced split
+        (its chunks times the median measured time a chunk) reaches the
+        mark.  A workload whose shares run as one chunk each (spmv)
+        has no grid to refine: ``cold()`` drops what its earlier calls
+        packed, before the card-alone call and again before the forced
+        call, so both pack their card share anew, and the card's share
+        is the card-alone call's time a unit times its units.
+        ``runner(label, fn)`` runs and checks the forced call."""
+        G = ex.n_chunks
+        while True:
+            cu = max(units // G, 1)
+            host = max(units // 8 // cu, 1) * cu
+            exg = grids.get(G) or grids.setdefault(
+                G, HybridExecutor(n_chunks=G))
+            if cold is not None:
+                cold()
+            probe = call(exg, [units, 0])
+            recs = [r for r in probe.trace.records if r.group == "accel"]
+            if cold is not None:
+                per_unit = (sum(r.t_end - r.t_start for r in recs)
+                            / sum(r.chunk.units for r in recs))
+                predicted = per_unit * (units - host)
+                source = (f"a card-alone call packing its share anew: "
+                          f"{per_unit * 1e3:.4f} ms a unit")
+            else:
+                # the median: one slow chunk does not size the grid
+                per_chunk = statistics.median(r.t_end - r.t_start
+                                              for r in recs)
+                predicted = per_chunk * -(-(units - host) // cu)
+                source = (f"a card-alone call at this grid: "
+                          f"{len(recs)} chunks, median {per_chunk * 1e3:.4f}"
+                          f" ms a chunk")
+            print(f"hybrid {label} sizing: grid={G} units={units} "
+                  f"host_units={host} card_share_predicted_s="
+                  f"{predicted!r} from {source} (needs >= "
+                  f"{FORCED_CARD_S!r})")
+            if predicted >= FORCED_CARD_S:
+                break
+            if cold is not None or 2 * G > units:
+                raise AssertionError(f"{label}: no grid gives the card a "
+                                     f"share of {FORCED_CARD_S} s")
+            G *= 2
+        if cold is not None:
+            cold()
+        return runner(label, lambda: call(exg, [units - host, host]))
+
+    def forced_run(reference, tol):
+        return lambda label, fn: run(label, fn, reference, tol, forced=True)
 
     img, w = conv.make_inputs(CONV_SIZE, CONV_K)
     conv_ref = conv2d_ref(torch.tensor(img), torch.tensor(w))
@@ -1089,11 +1207,9 @@ def hybrid_phase(torch, np):
     run("conv profiled", lambda: conv.run_hybrid(
         ex, size=CONV_SIZE, ksize=CONV_K), conv_ref, TOL["conv2d"],
         profile=True)
-    chunk = CONV_SIZE // ex.n_chunks
-    run("conv forced", lambda: conv.run_hybrid(
-        ex, size=CONV_SIZE, ksize=CONV_K,
-        plan_override=[CONV_SIZE - 2 * chunk, 2 * chunk]),
-        conv_ref, TOL["conv2d"], forced=True)
+    forced("conv forced", lambda e, plan: conv.run_hybrid(
+        e, size=CONV_SIZE, ksize=CONV_K, plan_override=plan), CONV_SIZE,
+        forced_run(conv_ref, TOL["conv2d"]))
 
     cost_model.reset_profiles()
     for label in ("cold", "warm"):
@@ -1101,9 +1217,13 @@ def hybrid_phase(torch, np):
             ex, n=HIST_N, n_bins=HIST_BINS), hist_ref, 0)
     run("hist profiled", lambda: hist.run_hybrid(
         ex, n=HIST_N, n_bins=HIST_BINS), hist_ref, 0, profile=True)
-    run("hist forced", lambda: hist.run_hybrid(
-        ex, n=HIST_N, n_bins=HIST_BINS, plan_override=[56, 8]),
-        hist_ref, 0, forced=True)
+    keys = hist.make_inputs(HIST_FORCED_N, HIST_BINS)
+    forced("hist forced", lambda e, plan: hist.run_hybrid(
+        e, n=HIST_FORCED_N, n_bins=HIST_BINS,
+        unit=HIST_FORCED_N // HIST_FORCED_UNITS, plan_override=plan),
+        HIST_FORCED_UNITS, forced_run(torch.tensor(np.bincount(
+            keys, minlength=HIST_BINS).astype(np.int32)), 0))
+    del keys
 
     cost_model.reset_profiles()
     outs = [run(f"spmv {label}", lambda: spmv.run_hybrid(
@@ -1111,11 +1231,15 @@ def hybrid_phase(torch, np):
         for label in ("cold", "warm")]
     run("spmv profiled", lambda: spmv.run_hybrid(
         ex, n=SPMV_N, density=SPMV_DENSITY), spmv_ref, 1e-4, profile=True)
-    total = sum(outs[0].plan.units)
-    run("spmv forced", lambda: spmv.run_hybrid(
-        ex, n=SPMV_N, density=SPMV_DENSITY,
-        plan_override=[total - total // 4, total // 4]),
-        spmv_ref, 1e-4, forced=True)
+    # spmv's card share is a few ELL launches of microseconds each: no
+    # grid makes it last.  What lasts is packing the share's rows, which
+    # its first call at a split does inside the card lane; a warm
+    # call's card time may or may not hold one (its split may repeat an
+    # earlier call's), so the forced call packs anew, as its probe does
+    forced("spmv forced", lambda e, plan: spmv.run_hybrid(
+        e, n=SPMV_N, density=SPMV_DENSITY, plan_override=plan),
+        sum(outs[1].plan.units), forced_run(spmv_ref, 1e-4),
+        cold=spmv._PREP_CACHE.clear)
 
     # bilateral: the value against the plain LUT filter over the whole
     # image on the card (independent of the kernel), and a band at each
@@ -1136,9 +1260,9 @@ def hybrid_phase(torch, np):
     bilat_kw = dict(size=BILAT_SIZE, sigma_s=BILAT_SIGMA_S,
                     sigma_r=BILAT_SIGMA_R, radius=BILAT_RADIUS)
 
-    def run_bilateral(label, **kw):
-        out = run(label, lambda: bilateral.run_hybrid(ex, **bilat_kw, **kw),
-                  bilat_ref, TOL["bilateral"], forced="plan_override" in kw,
+    def run_bilateral(label, fn=None):
+        out = run(label, fn or (lambda: bilateral.run_hybrid(ex, **bilat_kw)),
+                  bilat_ref, TOL["bilateral"], forced=fn is not None,
                   profile=label.endswith("profiled"))
         value = out.value.cpu()
         for lo, band in bands:
@@ -1152,9 +1276,8 @@ def hybrid_phase(torch, np):
     cost_model.reset_profiles()
     for label in ("cold", "warm", "profiled"):
         run_bilateral(f"bilateral {label}")
-    chunk = BILAT_SIZE // ex.n_chunks
-    run_bilateral("bilateral forced",
-                  plan_override=[BILAT_SIZE - 2 * chunk, 2 * chunk])
+    forced("bilateral forced", lambda e, plan: bilateral.run_hybrid(
+        e, **bilat_kw, plan_override=plan), BILAT_SIZE, run_bilateral)
 
     # sort: exact against np.sort; then the leaf sorter on the card
     keys = sort.make_inputs(SORT_N)
@@ -1165,10 +1288,9 @@ def hybrid_phase(torch, np):
             ex, n=SORT_N, n_bins=SORT_BINS), sort_ref, 0)
     run("sort profiled", lambda: sort.run_hybrid(
         ex, n=SORT_N, n_bins=SORT_BINS), sort_ref, 0, profile=True)
-    run("sort forced", lambda: sort.run_hybrid(
-        ex, n=SORT_N, n_bins=SORT_BINS,
-        plan_override=[SORT_BINS - SORT_BINS // 8, SORT_BINS // 8]),
-        sort_ref, 0, forced=True)
+    forced("sort forced", lambda e, plan: sort.run_hybrid(
+        e, n=SORT_N, n_bins=SORT_FORCED_BINS, plan_override=plan),
+        SORT_FORCED_BINS, forced_run(sort_ref, 0))
 
     keys_gpu = common.to_device(keys, dev)
     common.reset_launches()
@@ -3198,6 +3320,31 @@ def minicpm_phase(torch, np):
     return counts
 
 
+def _held_sdpa(torch, held, label):
+    """(the real ``flash_ops.sdpa``, one that holds each K7 launch
+    against its plain version): ``held`` maps (heads, K/V heads, d, T,
+    S, causal) to (launches, max error)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    real = flash_ops.sdpa
+
+    def sdpa(q, k, v, *, causal=True, config=None):
+        out = real(q, k, v, causal=causal, config=config)
+        ref = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        use_kernel=False)
+        key = (q.shape[2], k.shape[2], q.shape[3], q.shape[1], k.shape[1],
+               causal)
+        tol = TOL["flash_attention"]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{label} K7 "
+                                   f"{key}: {m}")
+        n, e = held.get(key, (0, 0.0))
+        held[key] = (n + 1, max(e, (out.float() - ref.float()).abs()
+                                .max().item()))
+        return out
+
+    return real, sdpa
+
+
 def whisper_phase(torch, dev):
     """(c) whisper-tiny, full config: the encoder over 1500 frames and
     the teacher-forced decoder over 448 tokens at B = 4, then decode
@@ -3225,24 +3372,8 @@ def whisper_phase(torch, dev):
           f"{count_params(params)} batch={B} frames={WHISPER_FRAMES} "
           f"dec_tokens={WHISPER_DEC}", flush=True)
 
-    held = {}                     # (T, S, causal) -> [launches, max err]
-    real = flash_ops.sdpa
-
-    def sdpa_held(q, k, v, *, causal=True, config=None):
-        out = real(q, k, v, causal=causal, config=config)
-        ref = flash_ops.flash_attention(q, k, v, causal=causal,
-                                        use_kernel=False)
-        key = (q.shape[1], k.shape[1], causal)
-        tol = TOL["flash_attention"]
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
-                                   atol=tol, msg=lambda m: f"whisper K7 "
-                                   f"T={key[0]} S={key[1]} causal={causal}"
-                                   f": {m}")
-        err = (out.float() - ref.float()).abs().max().item()
-        n, e = held.get(key, (0, 0.0))
-        held[key] = (n + 1, max(e, err))
-        return out
-
+    held = {}
+    real, sdpa_held = _held_sdpa(torch, held, "whisper")
     launches = {}
     flash_ops.sdpa = sdpa_held
     try:
@@ -3271,15 +3402,17 @@ def whisper_phase(torch, dev):
         - launches["decode_train"]
     want = {"encode": cfg.n_enc_layers, "decode_train": 2 * cfg.n_layers,
             "steps": LM_NEW * cfg.n_layers}
-    want_held = {(WHISPER_FRAMES, WHISPER_FRAMES, False): cfg.n_enc_layers,
-                 (WHISPER_DEC, WHISPER_DEC, True): cfg.n_layers,
-                 (WHISPER_DEC, WHISPER_FRAMES, False): cfg.n_layers,
-                 (1, WHISPER_FRAMES, False): LM_NEW * cfg.n_layers}
+    hd = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    want_held = {hd + (WHISPER_FRAMES, WHISPER_FRAMES, False):
+                 cfg.n_enc_layers,
+                 hd + (WHISPER_DEC, WHISPER_DEC, True): cfg.n_layers,
+                 hd + (WHISPER_DEC, WHISPER_FRAMES, False): cfg.n_layers,
+                 hd + (1, WHISPER_FRAMES, False): LM_NEW * cfg.n_layers}
     print(f"whisper: K7 launches {launches} predicted {want}; by entry "
           f"flash_attention_wgmma_bf16={entries['flash_attention_wgmma_bf16']}"
           f" flash_attention_fma_bf16={entries['flash_attention_fma_bf16']}; "
-          f"held against the plain version (T, S, causal): launches, max "
-          f"err {held}")
+          f"held against the plain version (heads, kv heads, d, T, S, "
+          f"causal): launches, max err {held}")
     print(f"whisper decode: {LM_NEW} steps against decode_train's logits, "
           f"max |diff| {worst!r} (atol {BF16_MODEL_TOL['atol']}, rtol "
           f"{BF16_MODEL_TOL['rtol']})", flush=True)
@@ -3330,9 +3463,526 @@ def whisper_phase(torch, dev):
         rows.append(_k7_row(torch, flush, label, q, k, v, False))
         # this shape's launches in the counted whisper pass
         rows[-1].update(path="whisper", launches_at_shape=held[
-            (T, WHISPER_FRAMES, False)][0])
+            hd + (T, WHISPER_FRAMES, False)][0])
     del params, flush, enc, full, caches
     gc.collect()
+    return counts, rows
+
+
+# ---------------------------------------------------------------------------
+# recurrent-families phase: xLSTM (xlstm-350m) and mamba + attention + MoE
+# (jamba-1.5-large)
+# ---------------------------------------------------------------------------
+FAM_XLSTM, FAM_JAMBA = "xlstm-350m", "jamba-1.5-large-398b"
+# jamba cut to its 8-layer group's first five layers (mamba, mamba +
+# MoE, mamba, mamba + MoE, attention + the dense MLP): a whole group
+# holds four MoE layers of 16 x 3 x 8192 x 24576, past 80 GB in bf16
+JAMBA_LAYERS = 5
+
+
+def _decode_gap(torch, label, cfg, params, prompt, toks, pad_to=1):
+    """16 teacher-forced decode steps (``greedy_logits``: the prefill,
+    then each step on ``generate``'s tokens) against the full forward's
+    logits at the same positions: the max |diff| a step, printed, not
+    held.  At these widths the reference misses its bf16 model
+    tolerance (atol 0.25) itself: an ulp of bf16 rounding in a few
+    percent of each random layer's outputs grows through the stack
+    (``ROADMAP.md`` queue 3); jamba's forward also drops what overflows
+    an expert's capacity over T tokens, where a one-token step drops
+    nothing.  ``_mlstm_cells``, ``_mamba_cells`` and ``_small_decode``
+    hold what the reference holds.  The forward's sequence is padded
+    past the steps' tokens to a multiple of ``pad_to`` (xLSTM's
+    chunkwise form takes only multiples of its chunk); the forward is
+    causal, so the padding leaves the compared positions alone."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serve_step import greedy_logits
+
+    P, n = prompt.shape[1], toks.shape[1] - 1
+    with torch.inference_mode():
+        rows = list(greedy_logits(cfg, params, prompt, n))
+        seq = torch.cat([prompt, toks[:, :n].to(prompt.dtype)], dim=1)
+        T = -(-seq.shape[1] // pad_to) * pad_to
+        seq = torch.cat([seq, prompt[:, :T - seq.shape[1]]], dim=1)
+        full, _ = model_zoo.forward(cfg, params, {"tokens": seq})
+        gaps = [(lg - full[:, P - 1 + t].float()).abs().max().item()
+                for t, lg in enumerate(rows)]
+        if not torch.equal(torch.stack([r.argmax(-1) for r in rows], 1)
+                           .to(torch.int32), toks):
+            raise AssertionError(f"{label}: greedy_logits' argmax is not "
+                                 f"generate's tokens")
+    print(f"{label} decode vs forward: the prefill's last position and "
+          f"{n} teacher-forced steps against forward over T={T}, max "
+          f"|diff| a step {[round(g, 4) for g in gaps]} (max {max(gaps)!r};"
+          f" not held at this width: see _decode_gap)", flush=True)
+    return max(gaps)
+
+
+def _hold(torch, label, pairs, tol):
+    """Each (got, want) of ``pairs`` within ``tol``; prints the max."""
+    worst = 0.0
+    for got, want in pairs:
+        torch.testing.assert_close(got, want, **tol,
+                                   msg=lambda m: f"{label}: {m}")
+        worst = max(worst, (got - want).abs().max().item())
+    print(f"{label}: f32 on the card, {len(pairs)} pieces held at atol "
+          f"{tol['atol']} rtol {tol['rtol']}: max |diff| {worst!r}",
+          flush=True)
+
+
+def _mlstm_cells(torch, dev):
+    """The chunkwise mLSTM form against the recurrent one on the card at
+    xlstm-350m's heads (4 x 512), B = 4, in f32, at the reference's
+    tolerance (``tests/test_models.py``: 2e-5 abs, 2e-4 rel): the
+    chunkwise form over the 1024-token prompt (chunk 256), then 16
+    recurrent steps from its state, against the chunkwise form over all
+    positions."""
+    from repro_torch.models import layers, xlstm
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    B, nh, dh, P, n, chunk = LM_BATCH, 4, 512, LM_PROMPT, LM_NEW, 256
+    T = -(-(P + n) // chunk) * chunk
+    q, k, v = (randn(B, T, nh, dh) for _ in range(3))
+    li = randn(B, T, nh, scale=2.0)
+    lf = layers.log_sigmoid(randn(B, T, nh, scale=2.0))
+    with torch.inference_mode():
+        h_all, _ = xlstm.mlstm_chunkwise(q, k, v, li, lf, chunk)
+        h_pre, st = xlstm.mlstm_chunkwise(q[:, :P], k[:, :P], v[:, :P],
+                                          li[:, :P], lf[:, :P], chunk)
+        h_dec, _ = xlstm.mlstm_recurrent(
+            q[:, P:P + n], k[:, P:P + n], v[:, P:P + n], li[:, P:P + n],
+            lf[:, P:P + n], st)
+    _hold(torch, "xlstm mlstm cells", [(h_pre, h_all[:, :P]),
+                                       (h_dec, h_all[:, P:P + n])],
+          dict(atol=2e-5, rtol=2e-4))
+
+
+def _mamba_cells(torch, dev, mix, cfg):
+    """jamba's mamba layer ``mix`` in f32 on the card, at the
+    reference's tolerance (``test_mamba_decode_matches_full_fp32``: 1e-5
+    abs, 1e-4 rel): a 16-token prefix with its cache, then 8 decode
+    steps, against the full 24-token sequence."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float())
+           for k, v in mix.items()}
+    x = torch.randn((1, 24, cfg.d_model), generator=gen, device=dev)
+    pairs = []
+    with torch.inference_mode():
+        y_all, _ = ssm.mamba(p32, x, cfg)
+        _, cache = ssm.mamba(p32, x[:, :16], cfg, make_cache=True)
+        for t in range(16, 24):
+            y_t, cache = ssm.mamba_decode(p32, x[:, t:t + 1], cfg, cache)
+            pairs.append((y_t[:, 0], y_all[:, t]))
+    _hold(torch, "jamba mamba cells", pairs, dict(atol=1e-5, rtol=1e-4))
+
+
+def _small_decode(torch, dev):
+    """The reference's own xLSTM decode-consistency test at its config
+    (``tests/test_models.py::test_decode_xlstm``: 4 layers, d_model 64,
+    chunk 4), on the card: prefill(P) + step decode against the full
+    forward, at atol 0.25 / rtol 0.1."""
+    from repro_torch.configs.base import (ArchConfig, ParallelConfig,
+                                          XLSTMConfig)
+    from repro_torch.models import model_zoo
+
+    cfg = ArchConfig(name="t", family="ssm", n_layers=4, d_model=64,
+                     n_heads=4, n_kv_heads=4, d_ff=0, vocab_size=256,
+                     head_dim=16, block_pattern="xlstm",
+                     xlstm=XLSTMConfig(slstm_every=2, chunk_size=4),
+                     parallel=ParallelConfig(remat="none"))
+    T, P = 8, 4
+    params = model_zoo.init(cfg, 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, T), generator=gen,
+                           device=dev)
+    with torch.inference_mode():
+        full, _ = model_zoo.forward(cfg, params, {"tokens": tokens})
+        pre, caches = model_zoo.prefill(cfg, params,
+                                        {"tokens": tokens[:, :P]},
+                                        cache_len=T)
+        torch.testing.assert_close(pre.float(), full[:, :P].float(),
+                                   **BF16_MODEL_TOL)
+        errs = []
+        for t in range(P, T):
+            lg, caches = model_zoo.decode_step(cfg, params,
+                                               tokens[:, t:t + 1], caches, t)
+            errs.append((lg[:, 0].float() - full[:, t].float()).abs()
+                        .max().item())
+    if max(errs) >= BF16_MODEL_TOL["atol"]:
+        raise AssertionError(f"xlstm small decode consistency: {errs}")
+    print(f"xlstm small decode consistency (the reference's test config, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}): {T - P} steps "
+          f"against forward, max |diff| {max(errs)!r} (< "
+          f"{BF16_MODEL_TOL['atol']})", flush=True)
+
+
+def xlstm_phase(torch, np):
+    """(d) xlstm-350m at full width and depth (21 mLSTM and 3 sLSTM
+    layers): greedy ``generate`` at 4 x 1024 + 16 (prefill and step
+    times, peak memory, a profiled step's GPU idle share), its decode
+    steps' gap to the forward's logits (printed), the chunkwise and
+    recurrent mLSTM forms against each other in f32 at its head shapes
+    (the reference's cell tolerance) and the reference's own xLSTM
+    decode-consistency test on the card; then the continuous engine (a burst of 8 batch-1
+    requests into 4 slots, each request's tokens bitwise a solo
+    ``generate``, the 4-slot step's logits bitwise four B = 1 steps');
+    then ``launch/serve.py --arch xlstm-350m --full --stream
+    --continuous``.  xLSTM runs no kernel of the port (the reference
+    computes it in plain ``jnp``); returns the generate call's launch
+    counts, all zero."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import registry
+    from repro_torch.core.hybrid_executor import detect_platform
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.models.param import count_params, param_bytes
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.serve_step import (generate, make_prefill_step,
+                                              make_serve_step)
+    from repro_torch.workloads import requests as adapters
+
+    dev = torch.device("cuda", 0)
+    cfg = registry.get(FAM_XLSTM)
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    print(f"xlstm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"mlstm d_inner={int(cfg.xlstm.proj_factor * cfg.d_model)} "
+          f"chunk={cfg.xlstm.chunk_size} slstm_every="
+          f"{cfg.xlstm.slstm_every} layers={cfg.n_layers} vocab="
+          f"{cfg.vocab_size} params={count_params(params)} weights_bytes="
+          f"{param_bytes(params)} init_s={time.perf_counter() - t0!r}",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompt, LM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = common.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"xlstm generate: batch={LM_BATCH} prompt={LM_PROMPT} new={LM_NEW}"
+          f" wall_s={wall!r} peak_bytes={peak} launches={counts}",
+          flush=True)
+    if any(counts.values()) or toks.shape != (LM_BATCH, LM_NEW + 1) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"xlstm generate: launches {counts}, tokens "
+                             f"{toks}")
+    L = LM_PROMPT + LM_NEW
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg, cache_len=L)
+        step = make_serve_step(cfg)
+        t0 = time.perf_counter()
+        tok, caches = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = tok.to(torch.int32)
+        step_s = []
+        for t in range(LM_NEW):
+            t0 = time.perf_counter()
+            tok, caches = step(params, tok, caches, LM_PROMPT + t)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        profile_window(torch, "xlstm decode profiled",
+                       lambda: step(params, tok, caches, L - 1))
+        # the engine's step: the same 4 rows at a (4,) position tensor,
+        # the recurrent products row by row
+        pos = torch.full((LM_BATCH,), L - 1, dtype=torch.long, device=dev)
+        profile_window(torch, "xlstm slot step profiled (live=4)",
+                       lambda: model_zoo.decode_step(cfg, params, tok,
+                                                     caches, pos))
+        del caches
+    print(f"xlstm prefill: ms={prefill_s * 1e3!r} tokens_per_s="
+          f"{LM_BATCH * LM_PROMPT / prefill_s!r} (the sLSTM time loop: "
+          f"{cfg.n_layers // cfg.xlstm.slstm_every} x {LM_PROMPT} steps)")
+    print(f"xlstm decode: median_step_ms={statistics.median(step_s) * 1e3!r}"
+          f" min_step_ms={min(step_s) * 1e3!r} tokens_per_s="
+          f"{LM_BATCH / statistics.median(step_s)!r}", flush=True)
+    _decode_gap(torch, "xlstm", cfg, params, prompt, toks,
+                pad_to=cfg.xlstm.chunk_size)
+    _mlstm_cells(torch, dev)
+    _small_decode(torch, dev)
+
+    # the continuous engine on the accel group
+    wl = adapters.make_continuous_lm_adapter(
+        cfg, params, prompt_len=LM_PROMPT, new_tokens=LM_NEW,
+        n_slots=CB_SLOTS, warm_background=False,
+        name="serve-lm-cb/chip-xlstm")
+    stepper = adapters.make_request(wl, {"batch": 1}).stepper
+    sched = Scheduler(groups=[detect_platform()[0][0]], max_batch=CB_BURST,
+                      batch_window_s=0.002)
+    rec = _instrument(torch, common, stepper,
+                      lambda: next(iter(sched._engines.values()), None))
+    sched.submit(wl, {"batch": 1, "seed": 100}).result(timeout=600)
+    rec["prefill"].clear()
+    rec["step"].clear()
+    torch.cuda.reset_peak_memory_stats()
+    st0 = sched.stats.snapshot()
+    t0 = time.perf_counter()
+    burst = _burst(sched, wl, [{"batch": 1, "seed": s}
+                               for s in range(CB_BURST)])
+    wall = time.perf_counter() - t0
+    st1 = sched.stats.snapshot()
+    sched.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    d = {k: st1[k] - st0[k] for k in ("engine_steps", "engine_joins",
+                                      "engine_evictions")}
+    lat = [x for _, _, x in burst]
+    ttft = [f.meta["t_first_token"] - t for f, t, _ in burst]
+    print(f"xlstm continuous burst: {CB_BURST} requests of batch 1 x "
+          f"{LM_PROMPT} + {LM_NEW} into {CB_SLOTS} slots: {d} "
+          f"{_lat_line(np, lat)} ttft_ms p50={float(np.median(ttft)) * 1e3!r}"
+          f" wall_s={wall!r} tokens_per_s={CB_BURST * (LM_NEW + 1) / wall!r}"
+          f" peak_bytes={peak}", flush=True)
+    if not 0 < d["engine_steps"] < CB_BURST * LM_NEW \
+            or d["engine_joins"] != CB_BURST:
+        raise AssertionError(f"xlstm continuous: {d}: the rows did not "
+                             f"stack")
+    by_live = {}
+    for n_live, s_, _ in rec["step"]:
+        by_live.setdefault(n_live, []).append(s_)
+    print("xlstm continuous step: " + " ".join(
+        f"live={n} median_ms={statistics.median(v) * 1e3!r} (n={len(v)})"
+        for n, v in sorted(by_live.items())) + f"; a B=1 prefill median_ms="
+        f"{statistics.median(s_ for s_, _ in rec['prefill']) * 1e3!r}",
+        flush=True)
+    for s_, (f, _, _) in enumerate(burst):
+        p = adapters.make_request(wl, {"batch": 1, "seed": s_}) \
+            .arrays[0].on(dev)[0]
+        solo = generate(cfg, params, p, LM_NEW,
+                        cache_len=stepper.cache_len).cpu()
+        if not torch.equal(f.result(), solo):
+            raise AssertionError(f"xlstm continuous: request {s_} is not "
+                                 f"its solo generate's tokens")
+    prompts = [adapters.make_request(wl, {"batch": 1, "seed": s_})
+               .arrays[0].on(dev)[0] for s_ in range(CB_SLOTS)]
+    worst, flips, n_cmp = _slot_vs_solo(torch, cfg, params, stepper,
+                                        prompts, LM_NEW)
+    print(f"xlstm continuous: {CB_SLOTS}-slot step vs B=1 steps "
+          f"(teacher-forced, {n_cmp} row-steps): max |logits diff| "
+          f"{worst!r}, argmax disagreements {flips}; all {CB_BURST} "
+          f"requests' tokens equal a solo generate at B=1", flush=True)
+    if worst != 0.0 or flips:
+        raise AssertionError("xlstm continuous: the slot-batched step is "
+                             "not bitwise the B=1 step")
+    adapters.unregister(wl)
+    del stepper, burst
+
+    # the reference's documented recipe, at full width
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(["--arch", FAM_XLSTM, "--full", "--stream",
+                          "--continuous", "--rate", "4", "--duration", "1",
+                          "--new-tokens", "4"])
+    text = buf.getvalue()
+    print("\n".join(f"xlstm cli: {ln}" for ln in text.splitlines()))
+    engine_lines = [ln for ln in text.splitlines()
+                    if ln.startswith("engine ") and " prefill=" in ln]
+    if out["rejected"] or not out["tokens"] or len(engine_lines) != 1 \
+            or out["stats"].in_flight:
+        raise AssertionError("xlstm cli: no engine line, a rejected "
+                             "request or requests left in flight")
+    print(f"xlstm cli: launch/serve.py --arch {FAM_XLSTM} --full --stream "
+          f"--continuous --rate 4 --duration 1 --new-tokens 4: "
+          f"{len(out['tokens'])} requests served in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    adapters.unregister(out["workload"])
+    del params, out
+    gc.collect()
+    return counts
+
+
+def jamba_phase(torch, dev):
+    """(e) jamba-1.5-large at full width, cut to one group's first five
+    layers: greedy ``generate`` at 4 x 1024 + 16, every K7 launch (the
+    attention layer's prefill: 64/8 heads, d = 128, causal) held against
+    its plain version, K7 and K8 on their tensor-core entries, K8's
+    launches per prefill and per step; the tokens against the plain
+    path under the margin rule; the decode steps' gap to the forward's
+    logits (printed), its mamba layer's full and decode forms against
+    each other in f32 (the reference's tolerance); K7's row at the
+    prefill shape beside SDPA and K8's at C =
+    640 and C = 4 on the model's expert weights beside ``torch.bmm``.
+    Returns (the generate call's launch counts, the rows)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import blocks, model_zoo
+    from repro_torch.models.param import count_params, param_bytes
+    from repro_torch.serve.plain_check import (MARGIN, check_tokens,
+                                               greedy_with_gaps,
+                                               plain_kernels)
+    from repro_torch.serve.serve_step import (generate, make_prefill_step,
+                                              make_serve_step)
+
+    cfg = registry.get(FAM_JAMBA).replace(n_layers=JAMBA_LAYERS,
+                                          attn_every=JAMBA_LAYERS)
+    kinds, moe_flags, n_groups = blocks.group_layout(cfg)
+    n_attn, n_moe = kinds.count("attn") * n_groups, sum(moe_flags) * n_groups
+    m = cfg.moe
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model_zoo.init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    g = params["stack"]["groups"][0]
+    parts = {"experts": sum(count_params({k: g[f"l{i}"]["ffn"][k]
+                                          for k in ("w_up", "w_gate",
+                                                    "w_down")})
+                            for i, f in enumerate(moe_flags) if f),
+             "dense_mlps": sum(count_params(g[f"l{i}"]["ffn"])
+                               for i, f in enumerate(moe_flags) if not f),
+             "mamba": sum(count_params(g[f"l{i}"]["mix"])
+                          for i, k in enumerate(kinds) if k == "mamba"),
+             "attention": sum(count_params(g[f"l{i}"]["mix"])
+                              for i, k in enumerate(kinds) if k == "attn"),
+             "embed_unembed": count_params(params["embed"])
+             + count_params(params["unembed"])}
+    print(f"jamba: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads}x{cfg.head_dim} experts={m.n_routed} "
+          f"top{m.top_k} d_ff={m.d_ff}/{cfg.d_ff} mamba d_inner="
+          f"{cfg.ssm.expand * cfg.d_model} d_state={cfg.ssm.d_state} "
+          f"layers={cfg.n_layers} {kinds} moe={moe_flags} (of 72: one "
+          f"group's first {JAMBA_LAYERS}) params={count_params(params)} "
+          f"{parts} weights_bytes={param_bytes(params)} init_s="
+          f"{time.perf_counter() - t0!r}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+
+    held = {}
+    real, held_sdpa = _held_sdpa(torch, held, "jamba")
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.sdpa = held_sdpa
+    try:
+        common.reset_launches()
+        t0 = time.perf_counter()
+        toks = generate(cfg, params, prompt, LM_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, entries = common.launch_counts(), common.entry_counts()
+    finally:
+        flash_ops.sdpa = real
+    peak = torch.cuda.max_memory_allocated()
+    passes = 1 + m.overflow_passes
+    want = {"flash_attention": n_attn,
+            "gmm": 3 * passes * n_moe * (1 + LM_NEW)}
+    want_held = {(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LM_PROMPT,
+                  LM_PROMPT, True): n_attn}
+    print(f"jamba generate: batch={LM_BATCH} prompt={LM_PROMPT} "
+          f"new={LM_NEW} wall_s={wall!r} peak_bytes={peak} launches="
+          f"{counts} predicted={want}; by entry " + ", ".join(
+              f"{e}={entries[e]}" for pair in LM_ENTRY.values()
+              for e in pair) + f"; K7 held against its plain version "
+          f"(heads, kv heads, d, T, S, causal): launches, max err {held}",
+          flush=True)
+    for name, n in want.items():
+        tensor_core, cuda_core = LM_ENTRY[name]
+        if counts[name] != n or entries[tensor_core] != n \
+                or entries[cuda_core]:
+            raise AssertionError(f"jamba generate: {name} launched "
+                                 f"{counts[name]} times ({entries}), "
+                                 f"predicted {n} on {tensor_core}")
+    if {k: n for k, (n, _) in held.items()} != want_held:
+        raise AssertionError(f"jamba generate: K7 at {held}, predicted "
+                             f"{want_held}")
+    if toks.shape != (LM_BATCH, LM_NEW + 1) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"jamba generate: bad tokens {toks}")
+
+    L = LM_PROMPT + LM_NEW
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg, cache_len=L)
+        step = make_serve_step(cfg)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        tok, caches = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per = {"prefill": common.launch_counts()}
+        tok = tok.to(torch.int32)
+        step_s = []
+        for t in range(LM_NEW):
+            common.reset_launches()
+            t0 = time.perf_counter()
+            tok, caches = step(params, tok, caches, LM_PROMPT + t)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per["decode step"] = common.launch_counts()
+        profile_window(torch, "jamba decode profiled",
+                       lambda: step(params, tok, caches, L - 1))
+        del caches
+        profile_window(torch, "jamba prefill profiled",
+                       lambda: prefill(params, {"tokens": prompt}), top=12)
+    decode_s = statistics.median(step_s)
+    print(f"jamba prefill: ms={prefill_s * 1e3!r} tokens_per_s="
+          f"{LM_BATCH * LM_PROMPT / prefill_s!r} launches={per['prefill']}")
+    print(f"jamba decode: median_step_ms={decode_s * 1e3!r} min_step_ms="
+          f"{min(step_s) * 1e3!r} tokens_per_s={LM_BATCH / decode_s!r} "
+          f"launches_per_step={per['decode step']}", flush=True)
+    if per["prefill"]["gmm"] <= 0 or per["decode step"]["gmm"] <= 0 \
+            or per["prefill"]["flash_attention"] != n_attn:
+        raise AssertionError(f"jamba: K7/K8 per prefill / step {per}")
+
+    common.reset_launches()
+    with plain_kernels():
+        plain, gaps, _ = greedy_with_gaps(cfg, params, prompt, LM_NEW)
+    if common.launch_counts()["gmm"] or \
+            common.launch_counts()["flash_attention"]:
+        raise AssertionError("jamba plain path launched K7 or K8")
+    try:
+        differed = check_tokens(toks, plain, gaps)
+    except AssertionError as e:
+        raise AssertionError(f"jamba check: {e}") from None
+    for b, t, gap in differed:
+        print(f"jamba: row {b} differs first at token {t}, plain "
+              f"top-1/top-2 gap {gap!r}")
+    print(f"jamba check: {LM_BATCH - len(differed)} of {LM_BATCH} rows "
+          f"equal to the plain path's tokens; the others pass the margin "
+          f"rule (gap < {MARGIN}); min gap {gaps.min().item()!r}",
+          flush=True)
+    _decode_gap(torch, "jamba", cfg, params, prompt, toks)
+    _mamba_cells(torch, dev, g["l0"]["mix"], cfg)
+    print(f"jamba: peak_bytes over the phase "
+          f"{torch.cuda.max_memory_allocated()}", flush=True)
+
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    B, H, Kv, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = [_k7_row(torch, flush, "jamba prefill", randn(B * H, LM_PROMPT, d),
+                    randn(B * Kv, LM_PROMPT, d), randn(B * Kv, LM_PROMPT, d),
+                    True)]
+    w_up = g[f"l{moe_flags.index(True)}"]["ffn"]["w_up"]
+    C = max(1, int(LM_PROMPT * m.top_k / m.n_routed * m.capacity_factor))
+    for label, c in (("jamba prefill up", LM_BATCH * C),
+                     ("jamba decode up", LM_BATCH)):
+        rows.append(_k8_row(torch, flush, label,
+                            randn(m.n_routed, c, cfg.d_model), w_up))
+    for r in rows:
+        r.update(path="jamba generate",
+                 launches_per_prefill=per["prefill"][r["name"]],
+                 launches_per_decode_step=per["decode step"][r["name"]])
+    del params, flush, g, w_up
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts, rows
 
 
@@ -3397,6 +4047,13 @@ def main() -> None:
     per_call["whisper"], whisper_rows = whisper_phase(torch, dev)
     rows += fam_rows + whisper_rows
     print(f"families: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    # the recurrent families: xLSTM through the engine, jamba's mamba,
+    # attention (K7 at d = 128) and MoE (K8 at its expert width)
+    t0 = time.perf_counter()
+    per_call["xlstm generate"] = xlstm_phase(torch, np)
+    per_call["jamba generate"], jamba_rows = jamba_phase(torch, dev)
+    rows += jamba_rows
+    print(f"recurrent: phase {time.perf_counter() - t0:.1f} s", flush=True)
     # after the LM, so that the inputs these phases keep on the card
     # (montecarlo's 512 MB stream among them) stay out of its peak
     per_call["table2"] = table2_phase(torch)

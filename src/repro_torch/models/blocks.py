@@ -1,14 +1,20 @@
-"""Block assembly: (attn | mla) + (mlp | moe).
+"""Block assembly: (attn | mla | mamba | mlstm | slstm) + (mlp | moe).
 
 Layers are organised into *groups* (the repeating unit — one layer for
-homogeneous stacks) after an unrolled dense prefix (the first
-``n_dense_layers`` of an MoE model use the dense FFN).  The reference
-stacks the groups' parameters and runs a ``lax.scan`` over them; here
-``params["groups"]`` is a list of per-group parameter dicts and the
-stack is a Python loop over it.  ``group_layout`` knows every stack the
-reference builds; the layers of plain attention and MLA are ported, and
-``model_zoo`` refuses the jamba and xLSTM stacks before they reach this
-module.
+homogeneous stacks, 8 layers for jamba's attn:mamba interleave,
+``slstm_every`` layers for xLSTM) after an unrolled dense prefix (the
+first ``n_dense_layers`` of an MoE model of attention layers use the
+dense FFN).  The reference stacks the groups' parameters and runs a
+``lax.scan`` over them; here ``params["groups"]`` is a list of
+per-group parameter dicts and the stack is a Python loop over it.
+
+A decode step writes every layer's cache in place: attention and MLA
+their K/V slot, the recurrent layers (mamba, mLSTM, sLSTM) their whole
+state, with ``copy_``.  The cache tree a step is given is the tree it
+returns.  At a (B,) position tensor (the continuous engine's slots) the
+recurrent layers run their batched products (and the mLSTM gates'
+projections) row by row (``per_row``), so each row computes the bits of
+its solo step.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import init_mlp, init_norm, mlp, norm
 
 
@@ -59,6 +67,12 @@ def init_layer(gen, cfg, kind: str, use_moe: bool, dtype):
         p["mix"] = attn_mod.init_attention(gen, cfg, dtype)
     elif kind == "mla":
         p["mix"] = mla_mod.init_mla(gen, cfg, dtype)
+    elif kind == "mamba":
+        p["mix"] = ssm_mod.init_mamba(gen, cfg, dtype)
+    elif kind == "mlstm":
+        p["mix"] = xlstm_mod.init_mlstm_block(gen, cfg, dtype)
+    elif kind == "slstm":
+        p["mix"] = xlstm_mod.init_slstm_block(gen, cfg, dtype)
     else:
         raise ValueError(kind)
     if cfg.d_ff or use_moe:
@@ -69,11 +83,18 @@ def init_layer(gen, cfg, kind: str, use_moe: bool, dtype):
 
 
 def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
-    """Empty bf16 decode cache of one layer (the activations' type)."""
+    """Empty decode cache of one layer: bf16 (the activations' type)
+    but for the recurrent states, which are f32 as in the reference."""
     if kind == "attn":
         return attn_mod.init_cache(cfg, batch, max_len, device)
     if kind == "mla":
         return mla_mod.init_mla_cache(cfg, batch, max_len, device)
+    if kind == "mamba":
+        return ssm_mod.init_mamba_cache(cfg, batch, device)
+    if kind == "mlstm":
+        return xlstm_mod.init_mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm_mod.init_slstm_cache(cfg, batch, device)
     raise ValueError(kind)
 
 
@@ -100,6 +121,15 @@ def apply_layer(params, x, cfg, kind: str, use_moe: bool, *, sin, cos,
         y, cache = mla_mod.mla_attention(params["mix"], h, cfg, sin=sin,
                                          cos=cos,
                                          make_cache_len=make_cache_len)
+    elif kind == "mamba":
+        y, cache = ssm_mod.mamba(params["mix"], h, cfg,
+                                 make_cache=make_cache_len > 0)
+    elif kind == "mlstm":
+        y, cache = xlstm_mod.mlstm_block(params["mix"], h, cfg,
+                                         make_cache=make_cache_len > 0)
+    elif kind == "slstm":
+        y, st = xlstm_mod.slstm_block(params["mix"], h, cfg)
+        cache = st if make_cache_len > 0 else None
     else:
         raise ValueError(kind)
     x, aux = _ffn(params, x + y, cfg, use_moe)
@@ -111,12 +141,22 @@ def apply_layer_decode(params, x, cfg, kind: str, use_moe: bool, cache,
     """Single-token layer step at an int or a (B,) tensor of per-row
     positions. Returns (x, cache, aux); the cache is updated in place."""
     h = norm(params["norm1"], x, cfg)
+    per_row = not isinstance(position, int)
     if kind == "attn":
         y, cache = attn_mod.attention_decode(params["mix"], h, cfg, cache,
                                              position, sin=sin, cos=cos)
     elif kind == "mla":
         y, cache = mla_mod.mla_decode(params["mix"], h, cfg, cache,
                                       position, sin=sin, cos=cos)
+    elif kind == "mamba":
+        y, cache = ssm_mod.mamba_decode(params["mix"], h, cfg, cache,
+                                        per_row=per_row)
+    elif kind == "mlstm":
+        y, cache = xlstm_mod.mlstm_block(params["mix"], h, cfg,
+                                         decode_state=cache, per_row=per_row)
+    elif kind == "slstm":
+        y, cache = xlstm_mod.slstm_block(params["mix"], h, cfg, state=cache,
+                                         per_row=per_row)
     else:
         raise ValueError(kind)
     x, aux = _ffn(params, x + y, cfg, use_moe)
@@ -148,7 +188,7 @@ def init_stack(gen, cfg, dtype):
 
 
 def init_stack_caches(cfg, batch: int, max_len: int, device):
-    """Empty bf16 decode caches (the activations' type)."""
+    """Empty decode caches (``init_layer_cache``'s types)."""
     kinds, _, n_groups = group_layout(cfg)
     out = {"groups": [{f"l{i}": init_layer_cache(cfg, kind, batch, max_len,
                                                  device)

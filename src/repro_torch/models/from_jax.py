@@ -3,9 +3,11 @@
 The reference stacks its layer groups (and an encoder-decoder's
 encoder and decoder layers) on a leading axis for its ``lax.scan``; the
 port keeps a list of per-group (per-layer) trees.  Everything else maps
-one to one.  Norm parameters stay f32; every other tensor is stored in
-``dtype`` (the model casts it to the activations' type at use, so bf16
-storage equals the reference's f32 weights cast at use).
+one to one.  Norm parameters and the tensors the reference casts to f32
+at use (mamba's ``A_log``, sLSTM's ``r``, xLSTM's ``gn_scale``) stay
+f32; every other tensor is stored in ``dtype`` (the model casts it to
+the activations' type at use, so bf16 storage equals the reference's
+f32 weights cast at use).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.blocks import group_layout
 
 _F32_KEYS = ("norm1", "norm2", "norm3", "final_norm", "enc_norm",
-             "dec_norm", "q_norm", "k_norm", "kv_norm")
+             "dec_norm", "q_norm", "k_norm", "kv_norm", "A_log", "r",
+             "gn_scale")
 
 
 def _convert(tree, dev, dtype, keep_f32: bool = False):

@@ -25,6 +25,20 @@ def _silu(x):
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def softplus(x):
+    """jax.nn.softplus's formula (``jnp.logaddexp(x, 0)``), one rounding
+    per op in the input's type; F.softplus is linear past a threshold
+    and rounds once."""
+    out = torch.maximum(x, torch.zeros_like(x)) + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def log_sigmoid(x):
+    """jax.nn.log_sigmoid: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
 def softmax(x, dim: int = -1):
     """jax.nn.softmax's formula: exp(x - max) / sum."""
     e = torch.exp(x - x.amax(dim, keepdim=True))
@@ -184,3 +198,35 @@ def apply_rope(x, sin, cos):
         cos = cos[None, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent-layer helpers (xLSTM, mamba)
+# ---------------------------------------------------------------------------
+def rowwise(fn, *xs):
+    """``fn`` over the one-row slices of ``xs`` (batch axis 0), the
+    results concatenated: each row's product is the call it makes in a
+    batch of one."""
+    return torch.cat([fn(*(x[b:b + 1] for x in xs))
+                      for b in range(xs[0].shape[0])])
+
+
+def conv_step(window, w, b):
+    """The decode step's causal conv, ``einsum("bkd,kd->bd", window, w)``
+    + b, as a dot rounds it: f32 products, f32 sums over the K taps,
+    one rounding.  Elementwise, so a row's taps sum alone."""
+    y = (window.float() * w.float()).sum(dim=1).to(window.dtype)
+    return y + b.to(window.dtype)
+
+
+def copy_state(cache, new):
+    """Write ``new`` (a tree like ``cache``) into ``cache``'s tensors."""
+    if isinstance(cache, dict):
+        for k in cache:
+            copy_state(cache[k], new[k])
+    elif isinstance(cache, (list, tuple)):
+        for c, n in zip(cache, new):
+            copy_state(c, n)
+    else:
+        cache.copy_(new)
+    return cache

@@ -1,11 +1,10 @@
 """ArchConfig -> model functions (init / forward / prefill / decode).
 
-A single functional interface over decoder-only LMs of plain attention
-or MLA layers (with dense or MoE FFNs, token or stub-embedding inputs)
-and encoder-decoder models.  The jamba and xLSTM stacks are refused
-here: they come with their own slices.  Every entry runs on the device
-its parameters lie on; ``init`` puts them on the first GPU unless it is
-given ``device="cpu"``.
+A single functional interface over decoder-only LMs — stacks of plain
+attention, MLA, mamba (jamba's interleave) or xLSTM layers, with dense
+or MoE FFNs, token or stub-embedding inputs — and encoder-decoder
+models.  Every entry runs on the device its parameters lie on; ``init``
+puts them on the first GPU unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -19,18 +18,12 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.block_pattern != "attn" and not cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.block_pattern} stacks are not ported yet "
-            f"(ROADMAP queue 1, item 6)")
-
-
 def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> Any:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     on ``device`` (default: the first GPU).  Matmul weights and
-    embeddings are stored in bf16, norm parameters in f32."""
-    _check_ported(cfg)
+    embeddings are stored in bf16; norm parameters and the tensors the
+    reference casts to f32 at use (mamba's ``A_log``, sLSTM's ``r``,
+    xLSTM's ``gn_scale``) in f32."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if cfg.is_encoder_decoder:
@@ -40,7 +33,6 @@ def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> Any:
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]):
     """Training/prefill forward. Returns (logits, aux_loss)."""
-    _check_ported(cfg)
     if cfg.is_encoder_decoder:
         enc_out = encdec_mod.encode(params, batch["frames"], cfg)
         logits, _ = encdec_mod.decode_train(params, enc_out,
@@ -59,7 +51,6 @@ def prefill(cfg: ArchConfig, params, batch, cache_len: int):
     teacher-forced but its self-attention K/V are not written: the
     caches are ``init_dec_caches``' (empty self-attention caches, the
     encoder's cross K/V)."""
-    _check_ported(cfg)
     if cfg.is_encoder_decoder:
         enc_out = encdec_mod.encode(params, batch["frames"], cfg)
         logits, _ = encdec_mod.decode_train(params, enc_out,
@@ -75,10 +66,10 @@ def prefill(cfg: ArchConfig, params, batch, cache_len: int):
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 device=None, params=None, enc_out=None):
-    """Empty bf16 decode caches on ``device`` (default: the first GPU).
+    """Empty decode caches on ``device`` (default: the first GPU): bf16,
+    the recurrent layers' states f32.
     Encoder-decoder: ``params`` and ``enc_out`` are required, and the
     caches lie on ``enc_out``'s device."""
-    _check_ported(cfg)
     if cfg.is_encoder_decoder:
         if params is None or enc_out is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder's caches "
@@ -93,7 +84,6 @@ def decode_step(cfg: ArchConfig, params, token, caches, position):
     """One-token decode at ``position``: an int, or (decoder-only) a (B,)
     int tensor of per-row positions.  Returns (logits, caches); the
     caches are updated in place."""
-    _check_ported(cfg)
     if cfg.is_encoder_decoder:
         return encdec_mod.decode_step(params, token, cfg, caches, position)
     return tf_mod.lm_decode_step(params, token, cfg, caches, position)

@@ -1,9 +1,10 @@
 """The port's continuous-batching engine (``repro_torch.serve.continuous``)
 against the JAX reference's contracts, on the CPU.
 
-The reference's ``tests/test_continuous.py`` at two configs: kimi-k2
-``reduced()`` (attention + MoE, so K8's plain version runs) and the
-reference's own fixture config, minicpm3-4b ``reduced()`` (MLA); prompt
+The reference's ``tests/test_continuous.py`` at three configs: kimi-k2
+``reduced()`` (attention + MoE, so K8's plain version runs), the
+reference's own fixture config, minicpm3-4b ``reduced()`` (MLA), and
+xlstm-350m ``reduced()`` (recurrent caches); prompt
 8, six new tokens.  Join/evict is bitwise a solo ``generate``; the iteration
 steppers (listrank, lbm, dither) are bitwise their solo ``run_one``
 (lbm held to solo lbm stepping); a fresh scheduler places the engine's
@@ -53,6 +54,7 @@ from repro_torch.workloads import requests as adapters
 CPU = torch.device("cpu")
 KIMI = "kimi-k2-1t-a32b"
 MINICPM = "minicpm3-4b"
+XLSTM = "xlstm-350m"
 PROMPT_LEN, NEW_TOKENS = 8, 6
 CACHE_LEN = PROMPT_LEN + NEW_TOKENS + 1
 BF16_ATOL = 0.25
@@ -66,12 +68,13 @@ def _fresh_state():
     clear_calibration_cache()
 
 
-@pytest.fixture(scope="module", params=[KIMI, MINICPM])
+@pytest.fixture(scope="module", params=[KIMI, MINICPM, XLSTM])
 def lm(request):
     """One reduced arch + registered continuous adapter per module and
     arch: the stepper is shared state (every request of the workload
-    stacks into one engine).  kimi-k2 (attention + MoE) and minicpm3-4b
-    (MLA, the reference's own fixture config)."""
+    stacks into one engine).  kimi-k2 (attention + MoE), minicpm3-4b
+    (MLA, the reference's own fixture config) and xlstm-350m (mLSTM and
+    sLSTM: recurrent states, no sequence axis, in the slots)."""
     cfg = registry.get(request.param).reduced()
     params = model_zoo.init(cfg, 0, device=CPU)
     wl = adapters.make_continuous_lm_adapter(
@@ -685,12 +688,16 @@ def test_slot_step_is_one_batched_decode_step(lm):
         state = stepper.init_slots()
     step = make_slot_step(cfg)
     state["pos"][:] = PROMPT_LEN             # past the prefill's tokens
+    # a token other than the slots' zero prompts: a recurrent layer's
+    # conv window over a constant stream would shift to itself
+    state["tokens"][:] = 1
     caches = state["caches"]
     before = [t.clone() for t in leaves(caches)]
     toks, out = step(params, state["tokens"], caches, state["pos"])
     assert out is caches and toks.shape == (stepper.n_slots,)
     assert toks.dtype == torch.int32
-    # every layer's cache (K/V, or MLA's latent ckv / kr) got its row
+    # every layer's cache (K/V, MLA's latent ckv / kr, or a recurrent
+    # layer's conv window and state) got its row
     assert all(not torch.equal(a, b) for a, b in zip(leaves(caches),
                                                      before))
 

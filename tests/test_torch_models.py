@@ -519,16 +519,6 @@ def test_serve_launcher_needs_a_gpu_or_an_explicit_cpu():
         serve_launch.main(["--arch", KIMI])
 
 
-def test_unported_kinds_raise():
-    for arch in ("xlstm-350m", "jamba-1.5-large-398b"):
-        cfg = registry.get(arch).reduced()
-        with pytest.raises(NotImplementedError, match="not ported"):
-            model_zoo.init(cfg, device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match=f"{cfg.block_pattern} stacks"):
-            model_zoo.forward(cfg, {}, {"tokens": torch.zeros((1, 2))})
-
-
 def test_embeds_of_tokens_equal_the_tokens():
     """The embeddings of a token batch, given as ``embeds``, give the
     tokens' logits bitwise (forward, prefill and a decode step): the
