@@ -135,6 +135,29 @@
    (printed), its mamba layer's full and decode forms in f32 (1e-5,
    1e-4), K7's row at the prefill shape beside SDPA and K8's at C = 640
    and C = 4 on the model's expert weights beside ``torch.bmm``.
+   Then the fleet (the router and transport): (a) two ``InProcWorker``s,
+   each a ``Scheduler()`` on the real pair, behind the ``Router``: every
+   payload of the serve phase's Table-1 mix once on each, one at a
+   time, then its stream (6 req/s, 6 s) under ``torch.profiler``:
+   latency percentiles, throughput, requests per worker, the GPU's idle
+   share, every value against the serve phase's references; (b) two
+   ``ProcWorker`` children on cuda:0 sharing one calibration store: the
+   compute processes on the card and each child's own CUDA memory, the
+   same warm-up, then the stream for
+   8 s with a scripted ``ChaosInjector`` (SIGSTOP then SIGKILL of the
+   worker that owns the most keys at 40 % of the trace, the kill held
+   until a request waits on it; its restart at 70 %): every future
+   resolved once, nothing dropped, the death detected, its requests
+   resubmitted, the restarted child rejoined, every value against the
+   references; then ``serving_bench.fleet_cold_join_check`` (a cold
+   child on a warm shared store probes nothing); K1-K4, K6 and K7 (f32)
+   launched on their entries by (a)'s workers and (b)'s children (their
+   launch counts ride their heartbeats).  Then the scenarios:
+   the port's ``run_scenarios`` over its six specs (copies of the
+   reference's), each through a fresh ``Scheduler()`` on the real pair:
+   p95 and goodput per SLO class, the counters, the trace digest, the
+   accounting invariant, the chaos scenario's lane death, every
+   closed-loop request answered.
 7. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
    workloads at both of the paper's ratios (10 and 3.9) on the
    simulated pair on the GPU (``force_simulated``), a cold pass (its
@@ -176,8 +199,8 @@ Any mismatch raises and the script exits non-zero.  It also exits
 non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The calibration store is kept in memory
 (``REPRO_CALIB_CACHE=0``): the run writes nothing outside the checkout
-but for the kernel build and the autotune phase's throwaway stores,
-both under ``src/repro_torch/build/``.
+but for the kernel build and the throwaway stores of the fleet and the
+autotune phase, all under ``src/repro_torch/build/``.
 """
 from __future__ import annotations
 
@@ -1037,8 +1060,11 @@ def profiled(torch, label, fn):
                 by_name[e.name] = (t + hi - lo, n + 1)
     busy = _union_s(inside)
     if busy <= 0:
+        trace = out.trace
+        units = trace.group_units if trace is not None else out.plan.units
         raise AssertionError(f"{label}: no device time inside the timed "
-                             f"windows")
+                             f"windows (units by group {units}, "
+                             f"{len(device)} device events in the call)")
     span = out.result.hybrid_time
     call = _union_s([(e.time_range.start, e.time_range.end)
                      for e in device])
@@ -2291,10 +2317,16 @@ SERVE_ENTRY = {"conv2d": "conv2d_reg_f32", "hist": "hist_priv_i32",
 LM_STREAM_RATE, LM_STREAM_SECONDS = 1.0, 6.0
 
 
+_SERVE_REFS = {}
+
+
 def _serve_checks(torch, np):
     """Each stream workload's check on the host: the reference value of
     its (deterministic, seed 0) inputs, and the tolerance of the hybrid
-    phase's check of the same workload."""
+    phase's check of the same workload.  Made once and kept: the fleet
+    phase holds its results to the same values."""
+    if _SERVE_REFS:
+        return _SERVE_REFS
     from repro_torch.core.host_offload import bilateral_luts
     from repro_torch.kernels.bilateral.bilateral import bilateral_lut_torch
     from repro_torch.kernels.conv2d.ref import conv2d_ref
@@ -2326,6 +2358,7 @@ def _serve_checks(torch, np):
     refs["attention"] = (attn_ops.sdpa(q, k, v, causal=True,
                                        config={"impl": "torch_ref"}).cpu(),
                          2e-5)
+    _SERVE_REFS.update(refs)
     return refs
 
 
@@ -3986,6 +4019,444 @@ def jamba_phase(torch, dev):
     return counts, rows
 
 
+# the fleet (router + transport): the serve phase's Table-1
+# stream at its sizes and rate through 2 workers behind the router
+FLEET_WORKERS = 2
+FLEET_INPROC_S, FLEET_PROC_S = 6.0, 8.0
+# the proc fleet's chaos: SIGSTOP, then SIGKILL the worker that owns the
+# most of the mix's keys at this share of the trace (the kill waits for
+# a request on it), restart it at the second
+FLEET_KILL_AT, FLEET_RESTART_AT = 0.4, 0.7
+# the reference's fleet gate (serving_bench.run_fleet): goodput through
+# the death at least this share of a no-fault run's; the no-fault fleet
+# (a) serves every request of the stream, so it is a share of the sent
+FLEET_GOODPUT_FLOOR = 0.6
+# the cold-join check's mix: one workload (two_process_check's payload),
+# so that worker A's probes cover both lanes of every key it persists
+FLEET_COLD_MIX = [("conv", {"size": 128, "ksize": 5})]
+
+
+def _check_value(torch, label, wl, payload, value, refs):
+    """A fleet result against the serve phase's reference value.  Results
+    cross the transport on the host: a CPU tensor (sort's, host-native, a
+    numpy array), never a CUDA one."""
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        raise AssertionError(f"{label} {wl}: result on {value.device}")
+    value = _as_cpu(torch, value)
+    ref, tol = refs[(wl, payload["density"]) if wl == "spmv" else wl]
+    if tol == 0:
+        if not torch.equal(value, ref):
+            raise AssertionError(f"{label} {wl}: value differs")
+    else:
+        torch.testing.assert_close(value, ref, rtol=tol, atol=tol,
+                                   msg=lambda m: f"{label} {wl}: {m}")
+
+
+def _fleet_stream(np, router, seconds, on_done):
+    """The serve phase's open-loop Poisson stream of ``SERVE_MIX`` (6
+    req/s, seed 0) through ``router`` for ``seconds``; returns
+    [(workload, payload, t_submit, future)] and the completion stamps."""
+    rng = np.random.default_rng(0)
+    futs, done_at = [], {}
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        wl, payload = SERVE_MIX[int(rng.integers(len(SERVE_MIX)))]
+        f = router.submit(wl, dict(payload))
+        f.add_done_callback(on_done)
+        f.add_done_callback(
+            lambda f_: done_at.__setitem__(id(f_), time.perf_counter()))
+        futs.append((wl, payload, time.perf_counter(), f))
+        time.sleep(float(rng.exponential(1.0 / SERVE_RATE)))
+    return futs, done_at
+
+
+def _fleet_latency(np, futs, done_at):
+    lat = [done_at[id(f)] - t for _, _, t, f in futs if id(f) in done_at]
+    return tuple(float(v) * 1e3 for v in np.percentile(lat, [50, 95, 99]))
+
+
+def fleet_inproc_phase(torch, np):
+    """(a) Two ``InProcWorker``s, each a ``Scheduler()`` on the real pair
+    (accel cuda:0, host the CPU) sharing this process's calibration
+    store (warm from the serve phase, as a fleet's shared store is),
+    behind the ``Router``: every payload once on each worker, one at a
+    time, then the serve phase's stream for ``FLEET_INPROC_S`` under
+    ``torch.profiler``; every result against the serve phase's
+    references.  Returns the launch counts by kernel and by C entry of
+    the run (counts set to 0 just before the workers are made, read
+    after the drain)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.benchmarks.serving_bench import _broadcast_warm
+    from repro_torch.kernels import common
+    from repro_torch.serve.router import Router
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.transport import InProcWorker
+
+    refs = _serve_checks(torch, np)
+    resolved = {}
+
+    def on_done(f):
+        resolved[id(f)] = resolved.get(id(f), 0) + 1
+
+    made = []
+
+    def make_scheduler():
+        made.append(Scheduler(max_batch=SERVE_BURST_N, batch_window_s=0.005,
+                              explore_every=8))
+        return made[-1]
+
+    common.reset_launches()
+    workers = [InProcWorker(f"iw{i}", sched_factory=make_scheduler,
+                            hb_interval_s=0.2)
+               for i in range(FLEET_WORKERS)]
+    router = Router(workers).start()
+    try:
+        groups = {g.name: str(g.devices[0]) for g in made[0].groups}
+        if groups != {"accel": "cuda:0", "host": "cpu"}:
+            raise AssertionError(f"fleet inproc: expected accel=cuda:0 "
+                                 f"host=cpu, got {groups}")
+        t0 = time.perf_counter()
+        _broadcast_warm(router, SERVE_MIX, timeout_s=600.0)
+        t_warm = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_start = time.perf_counter()
+            futs, done_at = _fleet_stream(np, router, FLEET_INPROC_S,
+                                          on_done)
+            if not router.drain(timeout=600):
+                raise AssertionError("fleet inproc: drain() timed out")
+            wall = time.perf_counter() - t_start
+        gpu_busy = _union_s([(e.time_range.start, e.time_range.end)
+                             for e in prof.events()
+                             if e.device_type == DeviceType.CUDA
+                             and not getattr(e, "is_user_annotation",
+                                             False)])
+        counts, entries = common.launch_counts(), common.entry_counts()
+        per_worker = {n: s.get("completed", 0) for n, s in
+                      router.refresh_stats(timeout=10.0).items()}
+        st = router.stats
+        if st.in_flight != 0 or st.completed != st.submitted:
+            raise AssertionError(f"fleet inproc: submitted={st.submitted} "
+                                 f"completed={st.completed} failed="
+                                 f"{st.failed} in_flight={st.in_flight}")
+        if any(resolved.get(id(f), 0) != 1 for _, _, _, f in futs):
+            raise AssertionError("fleet inproc: a future did not resolve "
+                                 "exactly once")
+        for wl, payload, _, f in futs:
+            _check_value(torch, "fleet inproc", wl, payload,
+                         f.result(timeout=0), refs)
+    finally:
+        router.shutdown(timeout=120)
+    p50, p95, p99 = _fleet_latency(np, futs, done_at)
+    print(f"fleet inproc: workers={FLEET_WORKERS} (InProcWorker, "
+          f"Scheduler() on accel=cuda:0 host=cpu) warm_s={t_warm!r} "
+          f"stream {len(futs)} requests in {FLEET_INPROC_S} s at "
+          f"{SERVE_RATE}/s wall_s={wall!r} throughput="
+          f"{len(futs) / wall!r} req/s latency_ms p50={p50!r} p95={p95!r} "
+          f"p99={p99!r} requests_per_worker={per_worker} (warm included) "
+          f"gpu_busy_s={gpu_busy!r} gpu_idle_share={1.0 - gpu_busy / wall!r}"
+          f" (torch.profiler over the stream) resubmits={st.resubmits} "
+          f"spills={st.spills}", flush=True)
+    print("fleet inproc: launches by entry: " + ", ".join(
+        f"{e}={entries[e]}" for e in SERVE_ENTRY.values()))
+    print(f"fleet inproc: every value ok (the serve phase's tolerances), "
+          f"each on the host; every future resolved once", flush=True)
+    return counts, entries
+
+
+class _KillWhenBusy:
+    """The scripted faults of a ``ChaosInjector``, each kill9 held back
+    from its scripted time until its worker holds an unresolved request,
+    so that the death has work to fail over, and each restart until the
+    router has found its worker dead (the faults after a held one wait
+    behind it); the router applies them from its monitor tick like the
+    injector itself."""
+
+    def __init__(self, inj, router):
+        self._inj, self._router = inj, router
+        self._held = []
+        self._t0 = None
+        # (kind, seconds after arm()) of each fault applied
+        self.fired = []
+        # each killed worker's last heartbeat stats (its launch counts)
+        self.last_stats = {}
+
+    def arm(self) -> None:
+        self._t0 = time.perf_counter()
+        self._inj.arm()
+
+    def at_time_proc(self):
+        self._held += self._inj.at_time_proc()
+        out = []
+        while self._held:
+            f = self._held[0]
+            if f.kind == "kill9":
+                if self._router.pending_on(f.worker) == 0:
+                    break
+                self.last_stats[f.worker] = \
+                    self._router.worker_stats()[f.worker]
+            if f.kind == "restart" and \
+                    self._router.worker_states()[f.worker] != "dead":
+                break
+            out.append(self._held.pop(0))
+            self.fired.append((f.kind, time.perf_counter() - self._t0))
+        return out
+
+
+def _gpu_apps(label):
+    """The compute processes on the card as nvidia-smi lists them
+    ([(pid, used_memory)]), and the card's memory.used in MiB."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip()
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=30).stdout
+    print(f"fleet proc: {label}: nvidia-smi compute apps {out!r}, "
+          f"memory.used {used.strip()} MiB")
+    apps = [tuple(x.strip() for x in line.split(","))
+            for line in out.splitlines() if line.strip()]
+    return apps, float(used.strip().splitlines()[0])
+
+
+def fleet_proc_phase(torch, np):
+    """(b) Two ``ProcWorker`` children on cuda:0 behind the ``Router``,
+    sharing one calibration store: each child's CUDA memory, every
+    payload once on each, one at a time, then the stream for
+    ``FLEET_PROC_S`` with a scripted ``ChaosInjector``: SIGSTOP then
+    SIGKILL of the worker
+    that owns the most of the mix's keys at ``FLEET_KILL_AT`` of the
+    trace (the kill held until a request waits on the stopped worker:
+    a death with nothing in flight fails nothing over) and its restart
+    at ``FLEET_RESTART_AT``.  Every future resolves exactly once, none
+    is dropped, the death is detected and its requests are resubmitted,
+    ``FLEET_GOODPUT_FLOOR`` of the stream is served, every completed
+    value equals the reference; then the cold-join
+    check (a worker joining on a warm shared store probes nothing).
+    Returns the children's launch counts by kernel and by C entry, from
+    their heartbeats (the killed child's last one before its death)."""
+    import tempfile
+    from collections import Counter
+
+    from repro_torch.benchmarks import serving_bench as sb
+    from repro_torch.ft.failure import ChaosInjector, ProcFault
+    from repro_torch.serve.request_queue import RequestRejected
+    from repro_torch.serve.router import Router, default_bucket
+    from repro_torch.serve.transport import ProcWorker
+
+    refs = _serve_checks(torch, np)
+    root = os.path.join(SRC, "repro_torch", "build", "fleet")
+    os.makedirs(root, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="store-", dir=root)
+    resolved = {}
+
+    def on_done(f):
+        resolved[id(f)] = resolved.get(id(f), 0) + 1
+
+    workers = [ProcWorker(f"fw{i}", env=sb._fleet_env(store),
+                          hb_interval_s=0.2)
+               for i in range(FLEET_WORKERS)]
+    apps0, used0 = _gpu_apps("before the children")
+    t0 = time.perf_counter()
+    router = Router(workers).start()
+    try:
+        t_start = time.perf_counter() - t0
+        if router.worker_states() != {w.name: "alive" for w in workers}:
+            raise AssertionError(f"fleet proc: workers did not start: "
+                                 f"{router.worker_states()}")
+        # warm: every payload once on each child (inputs made and kept
+        # per device, the kernel library loaded): process state, not the
+        # stream's cost
+        t0 = time.perf_counter()
+        sb._broadcast_warm(router, SERVE_MIX, timeout_s=600.0)
+        t_warm = time.perf_counter() - t0
+        # each child's CUDA memory: nvidia-smi lists one compute process
+        # more per child (in this container it cannot name their pids),
+        # and each child reports its own allocator's reservation
+        apps1, used1 = _gpu_apps("children started and warm")
+        reserved = {n: s.get("cuda_memory_reserved", 0.0) for n, s in
+                    router.refresh_stats(timeout=10.0).items()}
+        print(f"fleet proc: child pids "
+              f"{ {w.name: w.pid for w in workers} }, parent pid "
+              f"{os.getpid()}; compute processes on the card "
+              f"{len(apps0)} -> {len(apps1)}, memory.used {used0!r} -> "
+              f"{used1!r} MiB (+{used1 - used0!r}); each child's reserved "
+              f"CUDA memory (MiB) " + ", ".join(
+                  f"{n}={v / 2**20!r}" for n, v in sorted(reserved.items())),
+              flush=True)
+        if len(apps0) < 1 or len(apps1) != len(apps0) + FLEET_WORKERS \
+                or any(v <= 0 for v in reserved.values()):
+            raise AssertionError(f"fleet proc: the children do not each "
+                                 f"hold memory on cuda:0 beside the "
+                                 f"parent ({len(apps0)} -> {len(apps1)} "
+                                 f"processes, reserved {reserved})")
+        owners = Counter(router.owner(f"{wl}|{default_bucket(p)}")
+                         for wl, p in SERVE_MIX)
+        victim = owners.most_common(1)[0][0]
+        chaos = _KillWhenBusy(ChaosInjector([
+            ProcFault(t=FLEET_KILL_AT * FLEET_PROC_S, worker=victim,
+                      kind="stall"),
+            ProcFault(t=FLEET_KILL_AT * FLEET_PROC_S, worker=victim,
+                      kind="kill9"),
+            ProcFault(t=FLEET_RESTART_AT * FLEET_PROC_S, worker=victim,
+                      kind="restart")]), router)
+        results_before = router.results_by_worker()
+        chaos.arm()
+        router.chaos = chaos
+        t_trace = time.perf_counter()
+        futs, done_at = _fleet_stream(np, router, FLEET_PROC_S, on_done)
+        if not router.drain(timeout=600):
+            raise AssertionError("fleet proc: drain() timed out")
+        wall = time.perf_counter() - t_trace
+        # the restarted child needs seconds (imports, a CUDA context) to
+        # beat again: wait past the trace's end for its rejoin
+        deadline = time.monotonic() + 120.0
+        while router.stats.worker_rejoins < 1 and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+        fired = dict(chaos.fired)
+        results_by = {n: k - results_before.get(n, 0)
+                      for n, k in router.results_by_worker().items()}
+        t_rejoin = (time.perf_counter() - t_trace
+                    - fired.get("restart", float("nan")))
+        st = router.stats
+        # the children's launches, from their heartbeats: the survivors'
+        # and the restarted child's now, the killed child's last report
+        reports = list(router.refresh_stats(timeout=10.0).values()) + \
+            list(chaos.last_stats.values())
+        hung = [f for _, _, _, f in futs if not f.done()]
+        once = all(resolved.get(id(f), 0) == 1 for _, _, _, f in futs)
+        served = rejected = 0
+        for wl, payload, _, f in futs:
+            try:
+                value = f.result(timeout=0)
+            except RequestRejected:
+                rejected += 1
+                continue
+            served += 1
+            _check_value(torch, "fleet proc", wl, payload, value, refs)
+    finally:
+        router.shutdown(timeout=120)
+    p50, p95, p99 = _fleet_latency(np, futs, done_at)
+    print(f"fleet proc: workers={FLEET_WORKERS} (ProcWorker children on "
+          f"cuda:0) start_s={t_start!r} warm_s={t_warm!r} stream "
+          f"{len(futs)} requests in {FLEET_PROC_S} s at {SERVE_RATE}/s, "
+          f"stall then kill9 {victim} (owner of {owners[victim]} of "
+          f"{len(SERVE_MIX)} mix keys; scripted at "
+          f"{FLEET_KILL_AT * FLEET_PROC_S} s, stalled at "
+          f"{fired.get('stall')!r} s, killed at {fired.get('kill9')!r} s "
+          f"with a request on it), restart at "
+          f"{fired.get('restart')!r} s; wall_s={wall!r} served="
+          f"{served} rejected={rejected} latency_ms p50={p50!r} p95={p95!r}"
+          f" p99={p99!r} deaths={st.worker_deaths} resubmits="
+          f"{st.resubmits} duplicates={st.duplicate_results} rejoins="
+          f"{st.worker_rejoins} rejoin_after_restart_s={t_rejoin!r} "
+          f"dropped_without_rejection={st.in_flight} results_returned="
+          f"{dict(sorted(results_by.items()))}", flush=True)
+    if hung or not once:
+        raise AssertionError(f"fleet proc: {len(hung)} hung, exactly once "
+                             f"{once}")
+    if st.in_flight != 0:
+        raise AssertionError(f"fleet proc: {st.in_flight} dropped without "
+                             f"a rejection")
+    if st.worker_deaths < 1 or st.resubmits < 1 or st.worker_rejoins < 1:
+        raise AssertionError(f"fleet proc: deaths={st.worker_deaths} "
+                             f"resubmits={st.resubmits} rejoins="
+                             f"{st.worker_rejoins}")
+    if served < FLEET_GOODPUT_FLOOR * len(futs):
+        raise AssertionError(f"fleet proc: served {served} of {len(futs)} "
+                             f"({rejected} rejected), under the "
+                             f"{FLEET_GOODPUT_FLOOR} goodput floor")
+    t0 = time.perf_counter()
+    probes_a, probes_b = sb.fleet_cold_join_check(
+        FLEET_COLD_MIX, verbose=False, root=root)
+    print(f"fleet proc: cold join ({FLEET_COLD_MIX}) worker A "
+          f"probe_runs={probes_a} cold worker B probe_runs={probes_b} in "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    if probes_b != 0:
+        raise AssertionError(f"fleet proc: the cold worker paid {probes_b} "
+                             f"probe run(s)")
+    counts = {k: int(sum(r.get(f"launches.{k}", 0) for r in reports))
+              for k in SOURCE}
+    entries = {e: int(sum(r.get(f"entry_launches.{e}", 0)
+                          for r in reports)) for e in SERVE_ENTRY.values()}
+    print("fleet proc: the children's launches by entry (heartbeats; the "
+          "killed child's last one): " + ", ".join(
+              f"{e}={n}" for e, n in entries.items()), flush=True)
+    return counts, entries
+
+
+def fleet_phase(torch, np):
+    """(a) and (b); returns the launch counts of both: this process's
+    workers' and the children's, from their heartbeats.  K1-K4, K6 and
+    K7 (f32) must each launch, on their entries (K4 in a cold worker's
+    calibration: the children's)."""
+    t0 = time.perf_counter()
+    counts, entries = fleet_inproc_phase(torch, np)
+    child_counts, child_entries = fleet_proc_phase(torch, np)
+    for k, n in child_counts.items():
+        counts[k] += n
+    for e, n in child_entries.items():
+        entries[e] += n
+    print("fleet: launches by entry (in-process workers + children): "
+          + ", ".join(f"{e}={entries[e]}" for e in SERVE_ENTRY.values()))
+    for name, entry in SERVE_ENTRY.items():
+        if counts[name] <= 0 or entries[entry] != counts[name]:
+            raise AssertionError(
+                f"fleet: {name} launched {counts[name]} times, "
+                f"{entries[entry]} through {entry}")
+    print(f"fleet: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def scenarios_phase(torch, np):
+    """The port's ``run_scenarios``: its six specs (copies of the
+    reference's), each through a fresh ``Scheduler()`` on the real
+    pair, after one warm run of every payload on each device; per spec
+    p95 and goodput by SLO class, the counters and the trace digest,
+    and the runner's checks: the accounting invariant, the chaos
+    scenario's lane death, no closed-loop client left waiting.
+    Returns the launch counts of the run."""
+    from repro_torch.benchmarks.scenarios import run_scenarios as drv
+    from repro_torch.kernels import common
+
+    t0 = time.perf_counter()
+    common.reset_launches()
+    ok, results = drv.run(print_rows=False)
+    counts = common.launch_counts()
+    for r in results:
+        c = r["counters"]
+        print(f"scenarios {r['scenario']}: mode={r['mode']} events="
+              f"{r['n_events']} wall_s={r['wall_s']!r} submitted="
+              f"{c['submitted']} completed={c['completed']} failed="
+              f"{c['failed']} shed_deadline={c['shed_deadline']} "
+              f"shed_brownout={c['shed_brownout']} rejected_full="
+              f"{c['rejected_full']} lane_deaths={c.get('lane_deaths', 0)}"
+              f" retries={c.get('retries', 0)} dropped_without_rejection="
+              f"{r['dropped_without_rejection']} trace_digest={r['digest']}")
+        for cls, cm in sorted(r["classes"].items()):
+            print(f"scenarios {r['scenario']} {cls}: completed="
+                  f"{cm['completed']} rejected={cm['rejected']} failed="
+                  f"{cm['failed']} p50_ms={cm['p50_s'] * 1e3!r} p95_ms="
+                  f"{cm['p95_s'] * 1e3!r} goodput_rps="
+                  f"{cm['goodput_rps']!r}")
+        if r["mode"] == "closed":
+            answered = sum(cm["completed"] + cm["rejected"] + cm["failed"]
+                           for cm in r["classes"].values())
+            if answered != r["n_events"] or c["submitted"] != r["n_events"]:
+                raise AssertionError(f"scenarios {r['scenario']}: "
+                                     f"{answered} of {r['n_events']} "
+                                     f"closed-loop requests answered")
+    if not ok or len(results) != 6:
+        raise AssertionError(f"scenarios: runner checks failed ({len(results)}"
+                             f" scenarios; see above)")
+    print(f"scenarios: launches={counts}")
+    print(f"scenarios: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         fail("src/repro_torch/csrc not found beside this script: run it "
@@ -4054,6 +4525,11 @@ def main() -> None:
     per_call["jamba generate"], jamba_rows = jamba_phase(torch, dev)
     rows += jamba_rows
     print(f"recurrent: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    # the fleet (router, transport) and the scenario engine, jamba's
+    # weights freed: two workers in this process, then two children on
+    # the card; then the six replayable scenarios
+    per_call["fleet"] = fleet_phase(torch, np)
+    per_call["scenarios"] = scenarios_phase(torch, np)
     # after the LM, so that the inputs these phases keep on the card
     # (montecarlo's 512 MB stream among them) stay out of its peak
     per_call["table2"] = table2_phase(torch)

@@ -26,6 +26,7 @@ launch count and to its C entry point's.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -222,30 +223,39 @@ def _build(srcs: List[str], out_dir: str, so_path: str) -> str:
                           text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, so_path)
     report = "".join(log)
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
         f.write(report)
+    os.replace(tmp, so_path)
     return report
 
 
 def kernel_lib() -> ctypes.CDLL:
     """Build (first use only) and load the kernel library; raises when
-    ``nvcc`` is missing or the build fails."""
+    ``nvcc`` is missing or the build fails.
+
+    Safe across processes: the check-and-build runs under an exclusive
+    ``flock`` on ``<BUILD_DIR>/<digest>.lock``, so processes that start
+    on one fresh checkout together (a fleet's workers) build once; the
+    others wait, then find the finished ``.so`` and only load it."""
     global _LIB, _BUILD_LOG
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
         srcs = _sources()
-        out_dir = os.path.join(BUILD_DIR, _digest(srcs))
+        digest = _digest(srcs)
+        out_dir = os.path.join(BUILD_DIR, digest)
         so_path = os.path.join(out_dir, "libkernels.so")
-        if os.path.isfile(so_path):
-            log_path = os.path.join(out_dir, "ptxas.log")
-            if os.path.isfile(log_path):
-                with open(log_path) as f:
-                    _BUILD_LOG = f.read()
-        else:
-            _BUILD_LOG = _build(srcs, out_dir, so_path)
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, f"{digest}.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.isfile(so_path):
+                log_path = os.path.join(out_dir, "ptxas.log")
+                if os.path.isfile(log_path):
+                    with open(log_path) as f:
+                        _BUILD_LOG = f.read()
+            else:
+                _BUILD_LOG = _build(srcs, out_dir, so_path)
         lib = ctypes.CDLL(so_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -20,6 +20,8 @@ and ``gmm.gmm.gmm_torch`` (K8, f32 products of the upcast operands).
 The LM's greedy tokens are held against the same model run with K7 and
 K8 swapped for those two (``serve.plain_check``).
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1708,3 +1710,99 @@ def test_jamba_greedy_tokens_kernel_path_against_plain_path(gpu):
     with plain_kernels():
         plain, gaps, _ = greedy_with_gaps(cfg, params, prompt, 8)
     check_tokens(out, plain, gaps)
+
+
+# ---------------------------------------------------------------------------
+# the fleet (router, transport) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("wl,payload,entry", [
+    ("hist", {"n": 1 << 20, "n_bins": 256}, "hist_priv_i32"),
+    ("conv", {"size": 512, "ksize": 15}, "conv2d_reg_f32")])
+def test_proc_worker_on_gpu_returns_what_a_local_scheduler_returns(
+        gpu, fresh_serving, monkeypatch, tmp_path, wl, payload, entry):
+    """A ``ProcWorker`` child on the real pair (its own CUDA context on
+    cuda:0) returns, as a CPU tensor, bitwise the value a local
+    ``Scheduler()`` returns from the card.  Both start from one store
+    in which the card is far faster than the host for this request, so
+    each places it dedicated on the card without a probe; the local
+    future names its lane, and the child's heartbeat shows one dedicated
+    execution, no probe and the request's C entry launched."""
+    from repro_torch.core.calibration import get_calibration_cache
+    from repro_torch.serve.router import Router
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.transport import ProcWorker
+    from repro_torch.workloads import requests as adapters
+
+    stores = {"REPRO_CALIB_CACHE": str(tmp_path / "calibration.json"),
+              "REPRO_TUNE_CACHE": str(tmp_path / "autotune.json")}
+    for k, v in stores.items():
+        monkeypatch.setenv(k, v)
+    cache = get_calibration_cache("torch:cuda")
+    key = adapters.make_request(wl, payload).workload
+    cache.put(key, "accel", 1e-9)
+    cache.put(key, "host", 1.0)
+    cache.flush()
+    with Scheduler() as s:
+        f = s.submit(wl, payload)
+        local = _serve_value(f.result(timeout=300))
+    assert f.meta["lane"] == "accel"
+    w = ProcWorker("gpu-w", env=stores, hb_interval_s=0.2)
+    r = Router([w], hb_timeout_s=30.0)
+    try:
+        r.start()
+        got = r.submit(wl, payload).result(timeout=300)
+        # the child counts the execution (dedicated or shared) just
+        # after it sends the result
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            beat = r.refresh_stats(timeout=5.0)["gpu-w"]
+            if beat.get("dedicated", 0) + beat.get("shared", 0) >= 1:
+                break
+            time.sleep(0.05)
+    finally:
+        r.shutdown(timeout=60.0)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert (beat["completed"], beat["dedicated"], beat["shared"],
+            beat["probe_runs"]) == (1, 1, 0, 0)
+    assert beat[f"entry_launches.{entry}"] > 0
+    assert torch.equal(got, local)
+
+
+@pytest.mark.needs_cuda
+def test_kernel_lib_built_by_two_processes_at_once(gpu, tmp_path):
+    """Two processes that call ``kernel_lib()`` at once into an empty
+    build directory both load the library (the build runs under a
+    file lock: one builds, the other waits and loads it) and launch a
+    kernel from it."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, time\n"
+        "import torch\n"
+        "from repro_torch.kernels import common\n"
+        "from repro_torch.core.cost_model import probe_add_one\n"
+        "common.BUILD_DIR = sys.argv[1]\n"
+        "t0 = time.time()\n"
+        "common.kernel_lib()\n"
+        "x = torch.zeros(128, 128, device='cuda')\n"
+        "assert torch.equal(probe_add_one(x), x + 1)\n"
+        "print('LOADED', time.time() - t0, len(common.build_log()))\n")
+    src = os.path.dirname(os.path.dirname(common.__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(src))
+    build = tmp_path / "build"
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(build)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        assert "LOADED" in out, out
+    digests = [d for d in os.listdir(build) if os.path.isdir(build / d)]
+    assert len(digests) == 1
+    assert (build / digests[0] / "libkernels.so").is_file()
+    assert (build / f"{digests[0]}.lock").is_file()
+    print(outs)
