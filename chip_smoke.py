@@ -303,6 +303,8 @@ TABLE1_SIZES = {
 # those that run through the executor's chunks (the rest time a task
 # graph, or lbm's plane split, themselves)
 CHUNKED = ("spgemm", "raycast", "montecarlo", "concomp")
+# those whose profiled call pins the card seven eighths of the units
+PINNED_PROFILE = ("montecarlo",)
 LM_ARCH, LM_LAYERS = "kimi-k2-1t-a32b", 2
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 16
 # the serve stream's attention requests, K7's f32 row
@@ -1458,16 +1460,29 @@ def table1_phase(torch, np) -> None:
         mod = importlib.import_module(f"repro_torch.workloads.{name}")
         kinds = ("cold", "warm") + (("profiled",) if name in CHUNKED
                                     else ())
+        warm_plan = None
         for kind in kinds:
             label = f"{name} {kind}"
             common.reset_launches()
+            call_kw = dict(kw)
+            if kind == "profiled" and name in PINNED_PROFILE:
+                # montecarlo's lanes tie (its card lane is host-bound),
+                # so its own plan may give the card no unit to profile:
+                # the profiled call pins the forced calls' split
+                units = kw["n_photons"] // kw["unit"]
+                call_kw["plan_override"] = [units - units // 8, units // 8]
+                print(f"hybrid {label}: warm plan {warm_plan}, pinned "
+                      f"plan {call_kw['plan_override']}")
             t0 = time.perf_counter()
             if kind == "profiled":
                 out = profiled(torch, label,
-                               lambda: mod.run_hybrid(ex, **kw))
+                               lambda: mod.run_hybrid(ex, **call_kw))
             else:
-                out = mod.run_hybrid(ex, **kw)
+                out = mod.run_hybrid(ex, **call_kw)
             wall = time.perf_counter() - t0
+            if kind == "warm":
+                warm_plan = list(out.plan.units)
+                print(f"hybrid {label}: warm plan {warm_plan}")
             print(f"hybrid {label}: size={kw} launches="
                   f"{common.launch_counts()}")
             if name in CHUNKED and out.trace.mode != "threads":
@@ -1965,6 +1980,39 @@ def profile_window(torch, label, fn, top=6):
     if busy <= 0:
         raise AssertionError(f"{label}: no device time in the window")
     window = (w1 - w0) / 1e6
+    print(f"{label}: window_s={window!r} gpu_busy_s={busy!r} "
+          f"gpu_idle_share={1.0 - busy / window!r}")
+    for name, (t, n) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:top]:
+        print(f"{label}: device {t / 1e3:.3f} ms in {n}  {name[:90]}")
+
+
+def profile_idle(torch, label, fn, top=6):
+    """``fn()`` and a synchronisation under torch.profiler with the CUDA
+    activity alone: the GPU's busy time (union of its kernel, copy and
+    memset intervals) against the call's wall time, the idle share, and
+    the device time by name.  No host event is recorded: a training
+    step makes ~10^5 of them, which ``profile_window`` would take tens
+    of seconds to read back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    inside, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        inside.append((e.time_range.start, e.time_range.end))
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    busy = _union_s(inside)
+    if busy <= 0:
+        raise AssertionError(f"{label}: no device time in the window")
     print(f"{label}: window_s={window!r} gpu_busy_s={busy!r} "
           f"gpu_idle_share={1.0 - busy / window!r}")
     for name, (t, n) in sorted(by_name.items(),
@@ -4457,6 +4505,380 @@ def scenarios_phase(torch, np):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training: the work-shared trainer, the optimizer, the checkpointer
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_SEQ, TRAIN_MB, TRAIN_ACCUM, TRAIN_STEPS = 1024, 2, 4, 4
+# lm-100m (examples/train_lm.py's full_cfg): seq, micro-batch, accum
+LM100_SEQ, LM100_MB, LM100_ACCUM = 512, 4, 8
+LM100_GEN_BATCH, LM100_GEN_PROMPT, LM100_GEN_NEW = 4, 64, 16
+# the CPU parity tests' tolerances (tests/torch_train_parity.py)
+TRAIN_LOSS_ATOL, TRAIN_GRAD_REL, TRAIN_GRAD_COS, TRAIN_NOISE = (
+    0.01, 0.1, 0.99, 1e-4)
+TRAIN_ROUTER_TIE = 0.01
+
+
+def _train_steps(label, history, tokens_per_step):
+    """Print each step's record; every loss and grad norm finite."""
+    for r in history:
+        print(f"{label} step {r.step}: loss={r.loss!r} grad_norm="
+              f"{r.grad_norm!r} units={r.units} executed={r.executed_units}"
+              f" replanned={r.replanned} steals={r.steals} wall_s="
+              f"{r.wall_s!r} tokens_per_s={tokens_per_step / r.wall_s!r}",
+              flush=True)
+        if not (math.isfinite(r.loss) and math.isfinite(r.grad_norm)):
+            raise AssertionError(f"{label} step {r.step}: loss {r.loss} "
+                                 f"grad norm {r.grad_norm}")
+
+
+def _train_h2o(torch):
+    """(a) h2o-danube-1.8b at full width and depth through
+    ``launch/train.py``: four steps with the host group killed at step 1
+    and revived at step 2, then one more step profiled.  K7 and K8 must
+    not launch: a differentiated layer takes the reference's
+    differentiable formulations (and h2o's sliding window keeps its
+    attention on the grouped einsum anyway)."""
+    import dataclasses
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.param import count_params
+
+    args = ["--arch", TRAIN_ARCH, "--full", "--seq", str(TRAIN_SEQ),
+            "--micro-batch", str(TRAIN_MB), "--accum", str(TRAIN_ACCUM),
+            "--steps", str(TRAIN_STEPS), "--inject-failure"]
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    trainer, out = train_launch.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = common.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    h = out["history"]
+    tokens = TRAIN_ACCUM * TRAIN_MB * TRAIN_SEQ
+    cfg = trainer.cfg
+    print(f"train h2o: {cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} vocab="
+          f"{cfg.vocab_size} window={cfg.sliding_window} remat="
+          f"{cfg.parallel.remat} params={count_params(out['params'])} "
+          f"(f32) seq={TRAIN_SEQ} micro_batch={TRAIN_MB} accum="
+          f"{TRAIN_ACCUM} tokens_per_step={tokens} wall_s={wall!r} "
+          f"peak_bytes={peak} launches={counts}", flush=True)
+    _train_steps("train h2o", h, tokens)
+    kill, revive = TRAIN_STEPS // 3, 2 * TRAIN_STEPS // 3
+    if h[kill].units != [TRAIN_ACCUM, 0] or h[revive].units[1] <= 0 \
+            or not (h[kill].replanned and h[revive].replanned):
+        raise AssertionError(f"train h2o: kill at {kill} / revive at "
+                             f"{revive}: units {[r.units for r in h]}")
+    print(f"train h2o: the host group killed at step {kill} (units "
+          f"{h[kill].units}) and rejoined at step {revive} (units "
+          f"{h[revive].units})")
+    if counts["flash_attention"] or counts["gmm"]:
+        raise AssertionError(f"train h2o: K7/K8 launched in training "
+                             f"{counts}")
+    print("train h2o: K7 and K8 launched 0 times in training: under "
+          "autograd a layer takes the reference's differentiable "
+          "formulation (the grouped-einsum attention, the einsum grouped "
+          "matmul); K7 and K8, like the reference's kernels, have no "
+          "backward")
+    steps = [r.wall_s for r in h[1:]]
+    med = statistics.median(steps)
+    print(f"train h2o: median_step_s={med!r} (steps 1-{TRAIN_STEPS - 1}) "
+          f"tokens_per_s={tokens / med!r} peak_gb={peak / 1e9!r}")
+    # one more step, profiled
+    trainer.tcfg = dataclasses.replace(trainer.tcfg,
+                                       steps=TRAIN_STEPS + 1)
+    state = {"params": out["params"], "opt": out["opt"]}
+    profile_idle(torch, "train h2o step profiled",
+                 lambda: trainer.run(state, start_step=TRAIN_STEPS,
+                                     warmup=False))
+    del trainer, out, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _lm100(steps, ckpt=None, kind="synthetic", opt=None):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.examples.train_lm import full_cfg
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = full_cfg()
+    return Trainer(
+        cfg, opt or OptConfig(lr=3e-4, warmup_steps=10, total_steps=100),
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=LM100_SEQ,
+                   micro_batch=LM100_MB, kind=kind),
+        TrainerConfig(accum_units=LM100_ACCUM, steps=steps,
+                      ckpt_dir=ckpt, ckpt_every=3,
+                      time_model=lambda g, k: k * (
+                          0.001 if g == "accel" else 0.004)))
+
+
+def _train_lm100(torch, dev, flush):
+    """(b) lm-100m: nine steps with a checkpoint every three; a fresh
+    trainer on that directory resumes at step 9 and runs to 12, against
+    the first trainer trained on, uninterrupted, to 12; twelve steps on
+    zipf data at the reference test's optimizer; ``generate`` on the
+    trained f32 weights, launching K7.  Returns (the generate call's
+    launch counts, K7's row at its prefill shape)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import common
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.serve.serve_step import generate
+
+    tokens = LM100_ACCUM * LM100_MB * LM100_SEQ
+    build = os.path.join(SRC, "repro_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train-ckpt-", dir=build)
+    try:
+        t0 = time.perf_counter()
+        first = _lm100(9, ckpt=tmp)
+        out = first.run()
+        # a fresh trainer on the same directory resumes at step 9 ...
+        resumed = _lm100(12, ckpt=tmp).run()["history"]
+        # ... and the first one, uninterrupted (its own state and
+        # tracker, nothing read back), trains on to step 12
+        first.ckpt = None
+        first.tcfg = dataclasses.replace(first.tcfg, steps=12)
+        whole = first.run({"params": out["params"], "opt": out["opt"]},
+                          start_step=9, warmup=False)["history"]
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del out, first
+    _train_steps("train lm-100m", whole, tokens)
+    if [r.step for r in resumed] != [9, 10, 11]:
+        raise AssertionError(f"train lm-100m: the restart ran steps "
+                             f"{[r.step for r in resumed]}, not 9-11")
+    rel = [abs(a.loss - b.loss) / abs(b.loss)
+           for a, b in zip(resumed, whole[9:])]
+    bitwise = all(a.loss == b.loss for a, b in zip(resumed, whole[9:]))
+    print(f"train lm-100m restart: 9 steps with a checkpoint every 3, a "
+          f"fresh trainer resumed at step {resumed[0].step}; losses "
+          f"{[r.loss for r in resumed]} vs the uninterrupted run's "
+          f"{[r.loss for r in whole[9:]]}: max_rel_diff={max(rel)!r} "
+          f"bitwise={bitwise} units resumed={[r.units for r in resumed]} "
+          f"uninterrupted={[r.units for r in whole[9:]]} wall_s={wall!r}",
+          flush=True)
+    if max(rel) > 1e-5:
+        raise AssertionError(f"train lm-100m restart: losses differ by "
+                             f"{max(rel)} relative")
+
+    t0 = time.perf_counter()
+    tr = _lm100(12, kind="zipf",
+                opt=OptConfig(lr=3e-3, warmup_steps=2, total_steps=100))
+    out = tr.run()
+    zipf_wall = time.perf_counter() - t0
+    losses = [r.loss for r in out["history"]]
+    print(f"train lm-100m zipf: losses={losses} drop={losses[0] - losses[-1]!r}"
+          f" wall_s={zipf_wall!r}", flush=True)
+    if not losses[-1] < losses[0] - 0.3:
+        raise AssertionError(f"train lm-100m zipf: loss {losses[0]} -> "
+                             f"{losses[-1]}, not down by 0.3")
+
+    cfg = tr.cfg
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (LM100_GEN_BATCH, LM100_GEN_PROMPT),
+                           generator=gen, device=dev)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    toks = generate(cfg, out["params"], prompt, LM100_GEN_NEW)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    counts, entries = common.launch_counts(), common.entry_counts()
+    print(f"train lm-100m generate: f32 trained weights, batch="
+          f"{LM100_GEN_BATCH} prompt={LM100_GEN_PROMPT} new="
+          f"{LM100_GEN_NEW} wall_s={gen_wall!r} launches={counts} "
+          f"flash_attention_wgmma_bf16="
+          f"{entries['flash_attention_wgmma_bf16']}", flush=True)
+    if counts["flash_attention"] <= 0 or entries[
+            "flash_attention_wgmma_bf16"] != counts["flash_attention"]:
+        raise AssertionError(f"train lm-100m generate: K7 launches "
+                             f"{counts} {entries}")
+    if toks.shape != (LM100_GEN_BATCH, LM100_GEN_NEW + 1) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"train lm-100m generate: bad tokens {toks}")
+    # K7 at the generate call's prefill shape
+    B, T, H, Kv, d = (LM100_GEN_BATCH, LM100_GEN_PROMPT, cfg.n_heads,
+                      cfg.n_kv_heads, cfg.head_dim_())
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((B * h_, T, d), generator=g, device=dev)
+               .to(torch.bfloat16) for h_ in (H, Kv, Kv))
+    row = _k7_row(torch, flush, "lm-100m prefill", q, k, v, True)
+    row["path"] = "train lm-100m generate"
+    del out, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def _pin_top_k(torch, moe, record=None, forced=None):
+    """Replace the MoE's top-k: record its choices, or take ``forced``'s
+    (call by call) and record its own.  Returns (restore, own choices,
+    probabilities)."""
+    orig, own, probs_seen = moe._top_k, [], []
+
+    def top_k(probs, k):
+        vals, idx = orig(probs, k)
+        own.append(idx.cpu())
+        probs_seen.append(probs.detach().float().cpu())
+        if forced is None:
+            return vals, idx
+        idx = forced[len(own) - 1].to(probs.device)
+        return torch.gather(probs, -1, idx), idx
+
+    moe._top_k = top_k
+
+    def restore():
+        moe._top_k = orig
+    return restore, own, probs_seen
+
+
+def _train_route(torch, np, dev):
+    """(c) the route and the gradients on the card at kimi-k2 and h2o
+    ``reduced()``: ``loss_fn``'s value and gradients on cuda:0 against
+    the CPU's from the same f32 weights (the card's MoE layers on the
+    CPU's experts, its own choices differing only at near-ties), at the
+    CPU parity tests' tolerances; a ``no_grad`` forward launching K7 and
+    K8 (kimi); both wrappers raising on inputs that require grad.
+    Returns the no_grad forwards' launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.core.tree import flatten_with_path, leaves, unflatten
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.gmm.gmm import gmm_cuda
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.train.train_step import to_batch, value_and_grad
+
+    total_counts = {}
+    for arch in ("kimi-k2-1t-a32b", TRAIN_ARCH):
+        cfg = registry.get(arch).reduced()
+        cpu = model_zoo.init(cfg, 0, device="cpu", dtype=torch.float32)
+        gpu = unflatten(cpu, [p.to(dev) for p in leaves(cpu)])
+        toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 64),
+                                                 dtype=np.int32)
+        b = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+        restore, ref_idx, probs = _pin_top_k(torch, moe)
+        try:
+            loss_c, _, g_c = value_and_grad(cpu, to_batch(b, "cpu"), cfg)
+        finally:
+            restore()
+        restore, own, _ = _pin_top_k(torch, moe, forced=ref_idx)
+        try:
+            common.reset_launches()
+            loss_g, _, g_g = value_and_grad(gpu, to_batch(b, dev), cfg)
+            torch.cuda.synchronize()
+            grad_counts = common.launch_counts()
+        finally:
+            restore()
+        flips = 0
+        for r, o, p in zip(ref_idx, own, probs):
+            k = r.shape[-1]
+            for at in np.argwhere((np.sort(r.numpy(), -1)
+                                   != np.sort(o.numpy(), -1)).any(-1)):
+                srt = np.sort(p[tuple(at)].numpy())[::-1]
+                if srt[k - 1] - srt[k] >= TRAIN_ROUTER_TIE:
+                    raise AssertionError(f"train route {arch}: the card "
+                                         f"chose other experts at {at}, "
+                                         f"probabilities {srt[:k + 1]}")
+                flips += 1
+        d_loss = abs(float(loss_g) - float(loss_c))
+        total = float(torch.sqrt(sum(torch.sum(x.double() ** 2)
+                                     for x in leaves(g_c))))
+        worst_rel, worst_cos, noise = 0.0, 1.0, 0
+        for (path, a), c in zip(flatten_with_path(g_g), leaves(g_c)):
+            a, c = a.double().cpu().flatten(), c.double().flatten()
+            nc, err = float(c.norm()), float((a - c).norm())
+            if nc < TRAIN_NOISE * total:
+                noise += 1
+                if err > TRAIN_NOISE * total:
+                    raise AssertionError(f"train route {arch}: {path} "
+                                         f"err {err}")
+                continue
+            cos = float(a @ c) / max(float(a.norm()) * nc, 1e-30)
+            worst_rel, worst_cos = max(worst_rel, err / nc), min(worst_cos,
+                                                                 cos)
+        print(f"train route {arch}: loss cuda={float(loss_g)!r} cpu="
+              f"{float(loss_c)!r} |diff|={d_loss!r} grads: worst leaf "
+              f"rel_l2={worst_rel!r} min cos={worst_cos!r} ({noise} "
+              f"noise-size leaves held absolutely) near-tie route flips="
+              f"{flips} launches under grad={grad_counts}", flush=True)
+        if d_loss > TRAIN_LOSS_ATOL or worst_rel > TRAIN_GRAD_REL \
+                or worst_cos < TRAIN_GRAD_COS:
+            raise AssertionError(f"train route {arch}: outside the CPU "
+                                 f"parity tolerances")
+        if grad_counts["flash_attention"] or grad_counts["gmm"]:
+            raise AssertionError(f"train route {arch}: K7/K8 under grad "
+                                 f"{grad_counts}")
+        common.reset_launches()
+        with torch.no_grad():
+            logits, _ = model_zoo.forward(cfg, gpu, to_batch(b, dev))
+        torch.cuda.synchronize()
+        counts = common.launch_counts()
+        for name, n in counts.items():
+            total_counts[name] = total_counts.get(name, 0) + n
+        want_k8 = cfg.moe is not None
+        # h2o's sliding window keeps its attention on the grouped einsum
+        want_k7 = not cfg.sliding_window
+        print(f"train route {arch}: no_grad forward launches={counts}",
+              flush=True)
+        if (counts["gmm"] > 0) != want_k8 or \
+                (counts["flash_attention"] > 0) != want_k7 or \
+                not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"train route {arch}: no_grad forward "
+                                 f"launches {counts}")
+    q = torch.randn((4, 64, 64), device=dev, dtype=torch.bfloat16)
+    x = torch.randn((2, 64, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.randn((2, 64, 64), device=dev, dtype=torch.bfloat16)
+    for label, call in (
+            ("flash_attention_cuda", lambda: flash_attention_cuda(
+                q.requires_grad_(), q, q)),
+            ("gmm_cuda", lambda: gmm_cuda(x, w.requires_grad_()))):
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"train route: {label} on inputs that require grad "
+                  f"raises: {e}")
+        else:
+            raise AssertionError(f"train route: {label} ran on inputs "
+                                 f"that require grad")
+    return total_counts
+
+
+def train_phase(torch, np, dev):
+    """The training slice on the card: (a) h2o-danube-1.8b at full width
+    and depth, (b) lm-100m's checkpoint, restart, zipf and train ->
+    serve, (c) the route and the gradients at ``reduced()``.  Returns
+    (the phase's launch counts, K7's row at lm-100m's prefill shape)."""
+    from repro_torch.kernels import common
+
+    t0 = time.perf_counter()
+    counts = dict(_train_h2o(torch))
+    t1 = time.perf_counter()
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    gen_counts, row = _train_lm100(torch, dev, flush)
+    del flush
+    t2 = time.perf_counter()
+    route_counts = _train_route(torch, np, dev)
+    print(f"train: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s")
+    for c in (gen_counts, route_counts):
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+    common.reset_launches()
+    print(f"train: launches={counts}")
+    print(f"train: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts, [row]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         fail("src/repro_torch/csrc not found beside this script: run it "
@@ -4530,6 +4952,10 @@ def main() -> None:
     # the card; then the six replayable scenarios
     per_call["fleet"] = fleet_phase(torch, np)
     per_call["scenarios"] = scenarios_phase(torch, np)
+    # training: h2o-danube-1.8b at full width, lm-100m's checkpoints and
+    # train -> serve, the route under autograd
+    per_call["train"], train_rows = train_phase(torch, np, dev)
+    rows += train_rows
     # after the LM, so that the inputs these phases keep on the card
     # (montecarlo's 512 MB stream among them) stay out of its peak
     per_call["table2"] = table2_phase(torch)

@@ -7,18 +7,19 @@ beyond the paper: RoPE/sin-cos tables, bilateral/range LUTs, host PRNG
 streams for data augmentation, batch assembly, and checkpoint
 serialization.
 
-``HostTaskPool`` runs those on host threads.
+``HostTaskPool`` runs those on host threads; ``DoubleBuffer`` overlaps an
+input pipeline one step ahead of the consumer (Fig. 2(b): no idle gaps).
 
-numpy only: a copy of the part of the reference's module that the
-ported workloads use (the port imports nothing of the reference),
-bit-identical in what it computes.  The double-buffered prefetch comes
-with the training slice that uses it.
+numpy only: a copy of the reference's module (the port imports nothing
+of the reference), bit-identical in what it computes.
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -64,3 +65,42 @@ def host_prng_stream(seed: int, n: int, dtype=np.float32) -> np.ndarray:
     """Pseudorandom stream generated on the host (paper §4.7/§4.8: the
     CPU generates randomness, the accelerator consumes it)."""
     return np.random.default_rng(seed).random(n, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Double-buffered prefetch (pipeline overlap)
+# ---------------------------------------------------------------------------
+class DoubleBuffer:
+    """Wrap an iterator; produce element i while the consumer uses i-1.
+
+    The producer is a daemon thread named ``prefetch``: a buffer left
+    undrained keeps it blocked on its full queue until the process
+    exits."""
+
+    _END = object()
+
+    def __init__(self, it: Iterable, depth: int = 2):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+
+        def worker():
+            try:
+                for x in it:
+                    self._q.put(x)
+            except BaseException as e:   # propagate to consumer
+                self._err = e
+            finally:
+                self._q.put(self._END)
+
+        self._t = threading.Thread(target=worker, daemon=True,
+                                   name="prefetch")
+        self._t.start()
+
+    def __iter__(self) -> Iterator:
+        while True:
+            x = self._q.get()
+            if x is self._END:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield x

@@ -158,12 +158,16 @@ class HybridExecutor:
     With no ``groups``, ``detect_platform`` builds them: the GPU and
     the CPU, or — when ``device="cpu"`` or ``force_simulated`` — the
     simulated pair.  ``steal=False`` turns work stealing off for every
-    call (a call with a ``plan_override`` never steals)."""
+    call (a call with a ``plan_override`` never steals).
+    ``time_model(group_name, units) -> seconds``, when given, replaces
+    the measured chunk times and runs every call in virtual-clock mode
+    (reproducible heterogeneity on one device)."""
 
     def __init__(self, groups: Optional[List[DeviceGroup]] = None,
                  simulated_ratio: float = 4.0, n_chunks: int = 16,
                  steal: bool = True, device=None,
-                 force_simulated: bool = False):
+                 force_simulated: bool = False,
+                 time_model: Optional[Callable[[str, int], float]] = None):
         if groups is None:
             groups, sim = detect_platform(simulated_ratio, device,
                                           force_simulated)
@@ -174,6 +178,7 @@ class HybridExecutor:
         self.groups = groups
         self.n_chunks = max(int(n_chunks), 1)
         self.steal = bool(steal)
+        self.time_model = time_model
         self.tracker = ThroughputTracker([g.name for g in groups])
         # persisted entries are keyed by platform: a GPU pair never
         # shares unit times with a CPU-simulated pair, nor with the
@@ -276,6 +281,11 @@ class HybridExecutor:
                                       min_units=min_units)
 
     # ------------------------------------------------------------------
+    def _mode(self) -> str:
+        if self.time_model is not None or self.simulated:
+            return "virtual"
+        return "threads"
+
     def run_work_shared(self, workload: str, total_units: int,
                         run_share: Callable[[str, int, int], object],
                         combine: Callable[[Sequence[object]], object],
@@ -340,8 +350,7 @@ class HybridExecutor:
                 plan_key, total_units, chunk_units, assigned0)
         do_warmup = warmup and not self._warm
 
-        mode = ("sequential" if sequential
-                else "virtual" if self.simulated else "threads")
+        mode = "sequential" if sequential else self._mode()
         steal = self.steal and plan_override is None
         # what the scheduler will actually allow (mirrors
         # AsyncChunkExecutor.run)
@@ -402,7 +411,8 @@ class HybridExecutor:
         # the timed windows carry torch.profiler markers, so a profile of
         # the call can tell them from its set-up and warmup
         with torch.profiler.record_function(TIMED_RUN):
-            trace = AsyncChunkExecutor(self.groups, steal=steal).run(
+            trace = AsyncChunkExecutor(
+                self.groups, steal=steal, time_model=self.time_model).run(
                 units, run_share, chunk_units, mode,
                 unit_time_priors=priors, whole_shares=whole_shares,
                 trusted_priors=trusted)

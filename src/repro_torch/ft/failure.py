@@ -1,9 +1,10 @@
 """Failure detection & injection.
 
-Real deployments detect dead slices via missed heartbeats; tests inject
-failures deterministically.  Training reacts the same way to both
-(mark the group dead, re-plan work shares, restore from the last
-checkpoint): that part comes with the training slice.
+Real deployments detect dead slices via missed heartbeats; tests and the
+examples inject failures deterministically (``FailureInjector``).  The
+trainer (``train.trainer``) reacts the same way to both: mark the group
+dead, re-plan work shares (elastic), restore from the last checkpoint if
+the failed group held non-replicated state.
 
 The serving scheduler consumes these primitives at lane granularity:
 idle lane workers beat through ``HeartbeatMonitor``, the watchdog thread

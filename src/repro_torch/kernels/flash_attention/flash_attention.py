@@ -74,8 +74,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> torch.Tensor:
     """q: (BH, T, d); k/v: (BH / rep, S, d), contiguous, f32 or bf16 on
     one GPU; d <= 256.  Returns (BH, T, d) in q's type.  The kernel
-    defines no backward: inputs that require grad raise (the training
-    slice brings the autograd.Function).  ``entry`` names the C entry
+    defines no backward, as the reference's defines no VJP: inputs that
+    require grad raise.  A differentiated model layer takes the
+    reference's differentiable formulation (``models.attention._sdpa``)
+    and never reaches this call.  ``entry`` names the C entry
     point (default: ``route``'s); one that ``entries`` does not list
     raises."""
     if q.dtype not in FMA_ENTRY:
@@ -83,8 +85,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = check_cuda("flash_attention", q, k, v, dtypes=(q.dtype,) * 3)
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
-            "flash_attention: the CUDA kernel has no backward yet "
-            "(ROADMAP queue 1, item 10)")
+            "flash_attention: the CUDA kernel has no backward (the "
+            "reference's kernel has no VJP); a differentiated model "
+            "layer takes the reference's differentiable formulation, "
+            "models.attention._sdpa")
     if q.dim() != 3:
         raise ValueError(f"flash_attention: need q (BH, T, d), got "
                          f"{tuple(q.shape)}")

@@ -8,7 +8,9 @@ model layers call for plain causal (or unmasked) attention: it reads no
 tune cache and runs the device's default, so on a CUDA tensor every
 layer launches K7 on its route (the reference's model path routes
 through its kernel only on a tune-cache hit or pin and then maps the
-kernel onto an XLA formulation, which has a VJP; serving needs none).
+kernel onto an XLA formulation, which has a VJP).  A layer that autograd
+records never calls it: it takes the grouped einsum
+``models.attention._sdpa``, the reference's differentiable route.
 Both take q (B, T, H, d) and k/v (B, S, Kv, d), H % Kv == 0, and return
 (B, T, H, d).
 

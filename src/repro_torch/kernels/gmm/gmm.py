@@ -66,15 +66,21 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor,
              entry: Optional[str] = None) -> torch.Tensor:
     """x: (E, C, D); w: (E, D, F), contiguous, both f32 or both bf16 on
     one GPU.  Returns (E, C, F) in x's type.  The kernel defines no
-    backward: inputs that require grad raise.  ``entry`` names the C
+    backward, as the reference's defines no VJP: inputs that require
+    grad raise.  A differentiated MoE layer takes the reference's
+    differentiable formulation (``ops.gmm_model``'s ``torch_einsum``)
+    and never reaches this call.  ``entry`` names the C
     entry point (default: ``route``'s); one that ``entries`` does not
     list raises."""
     if x.dtype not in FMA_ENTRY:
         raise ValueError(f"gmm: dtype {x.dtype} not supported")
     dev = check_cuda("gmm", x, w, dtypes=(x.dtype, x.dtype))
     if x.requires_grad or w.requires_grad:
-        raise NotImplementedError("gmm: the CUDA kernel has no backward "
-                                  "yet (ROADMAP queue 1, item 10)")
+        raise NotImplementedError(
+            "gmm: the CUDA kernel has no backward (the reference's kernel "
+            "has no VJP); a differentiated MoE layer takes the "
+            "reference's differentiable formulation, gmm_model's "
+            "torch_einsum")
     E, C, D, F = _shapes(x, w)
     if E > 65535 or -(-C // 128) > 65535:
         raise ValueError(f"gmm: E={E}, C={C} exceed the grid's limits")

@@ -4,8 +4,9 @@
 and shape bucket via ``kernels/autotune.py``; pass ``config=`` to pin
 one.  ``gmm_model`` is what MoE layers call: it reads no tune cache and
 runs the device's default, so on a CUDA tensor every MoE matmul
-launches K8 on its route (the reference's model path maps its kernel
-onto ``xla_einsum``, which has a VJP; serving needs none).
+launches K8 on its route, unless autograd records the call: then it
+runs ``torch_einsum``, as the reference's model path maps its kernel
+onto ``xla_einsum``, which has a VJP.
 
 The config space:
 
@@ -104,7 +105,12 @@ def tuned_config(x: torch.Tensor, w: torch.Tensor) -> Config:
 
 def gmm_model(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Model-layer grouped matmul: x (E, C, D), w (E, D, F) -> (E, C, F),
-    on the device's default (no tune cache is read)."""
+    on the device's default (no tune cache is read).  A call that
+    autograd records takes ``torch_einsum``, the reference's
+    differentiable formulation: K8, like the reference's kernel,
+    defines no backward."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _gmm_cfg(x, w, {"impl": "torch_einsum"})
     return _gmm_cfg(x, w, default_config(DEFAULT_CONFIG, CPU_CONFIG,
                                          x.device))
 

@@ -10,7 +10,10 @@ Plain causal (or unmasked) attention goes through
 ``kernels.flash_attention.ops.sdpa``: K7 on the GPU, its full
 (``causal=False``) route for the encoder and the cross-attention.
 Sliding windows and logit softcaps keep the grouped-einsum ``_sdpa``,
-and so does the decode step, as in the reference.  There is no mesh
+and so does the decode step, as in the reference.  A call that autograd
+records (grad mode on, an input or weight that requires grad) takes
+``_sdpa`` too: K7, like the reference's kernel, defines no backward,
+and the reference's differentiated layers take this formulation.  There is no mesh
 here, so the reference's ``kv_repeat`` (KV heads repeated to shard over
 a model axis) is always 1 and is left out.
 """
@@ -91,12 +94,19 @@ def causal_mask(T: int, S: int, window: int = 0, device=None):
     return m
 
 
-def _can_use_tuned_sdpa(cfg, causal: bool) -> bool:
-    """The flash-attention path covers plain causal / full attention:
-    sliding windows and logit softcaps stay on the einsum path."""
-    if cfg.logit_softcap:
+def _can_use_tuned_sdpa(cfg, causal: bool, *qkv) -> bool:
+    """The flash-attention path covers plain causal / full attention
+    that autograd does not record: sliding windows, logit softcaps and
+    differentiated calls stay on the einsum path."""
+    if cfg.logit_softcap or differentiated(*qkv):
         return False
     return not (causal and cfg.sliding_window)
+
+
+def differentiated(*tensors) -> bool:
+    """Autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors)
 
 
 def attention(params, x, cfg, *, sin=None, cos=None, causal: bool = True,
@@ -104,7 +114,7 @@ def attention(params, x, cfg, *, sin=None, cos=None, causal: bool = True,
     """Full-sequence attention. Returns (y, cache_or_None)."""
     B, T, _ = x.shape
     q, k, v = _qkv(params, x, cfg, sin, cos)
-    if _can_use_tuned_sdpa(cfg, causal):
+    if _can_use_tuned_sdpa(cfg, causal, q, k, v):
         out = flash_ops.sdpa(q, k, v, causal=causal)
     else:
         mask = (causal_mask(T, T, cfg.sliding_window, device=x.device)
@@ -189,7 +199,7 @@ def cross_attention(params, x, enc_kv, cfg):
     B, T, _ = x.shape
     dh = cfg.head_dim_()
     q = linear(params["wq"], x).reshape(B, T, cfg.n_heads, dh)
-    if _can_use_tuned_sdpa(cfg, causal=False):
+    if _can_use_tuned_sdpa(cfg, False, q, enc_kv["k"], enc_kv["v"]):
         out = flash_ops.sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
     else:
         out = _sdpa(q, enc_kv["k"], enc_kv["v"], None, cfg)

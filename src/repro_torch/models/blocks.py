@@ -15,12 +15,21 @@ returns.  At a (B,) position tensor (the continuous engine's slots) the
 recurrent layers run their batched products (and the mLSTM gates'
 projections) row by row (``per_row``), so each row computes the bits of
 its solo step.
+
+A training forward (autograd recording, no caches) wraps each group in
+the config's ``parallel.remat``: ``"dots"`` keeps the matmuls' outputs
+and recomputes the rest in the backward (the reference's
+``checkpoint_dots``), ``"full"`` recomputes the whole group.  Neither
+changes a value.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
@@ -164,6 +173,35 @@ def apply_layer_decode(params, x, cfg, kind: str, use_moe: bool, cache,
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+# the dot products whose outputs "dots" keeps: every matmul and einsum
+# reaches the dispatcher as one of these
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default]
+
+
+def _remat_wrap(fn, cfg):
+    """``fn`` under the config's rematerialisation policy.  The named
+    policies (``dots_names``, ``full_names``, ``boundaries``) pin the
+    results of collectives, which come with the mesh."""
+    remat = cfg.parallel.remat
+    if remat == "none":
+        return fn
+    if remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _DOTS)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat in ("dots_names", "full_names", "boundaries"):
+        raise NotImplementedError(
+            f"remat={remat!r} pins the results of collectives: it comes "
+            f"with the mesh slice (ROADMAP queue 1, item 9)")
+    raise ValueError(f"remat={remat!r}")
+
+
+# ---------------------------------------------------------------------------
 # Group (repeating unit) and stack
 # ---------------------------------------------------------------------------
 def init_group(gen, cfg, dtype):
@@ -211,14 +249,24 @@ def apply_stack(params, x, cfg, *, sin, cos, make_cache_len: int = 0):
                               cos=cos, make_cache_len=make_cache_len)
         prefix_caches.append(c)
         aux = aux + a
-    group_caches = []
-    for gp in params["groups"]:
+
+    def group(gp, x, aux):
         caches = {}
         for i, (kind, mf) in enumerate(zip(kinds, moe_flags)):
             x, caches[f"l{i}"], a = apply_layer(
                 gp[f"l{i}"], x, cfg, kind, mf, sin=sin, cos=cos,
                 make_cache_len=make_cache_len)
             aux = aux + a
+        return x, aux, caches
+
+    if torch.is_grad_enabled() and not make_cache_len:
+        remat = _remat_wrap(lambda gp, x, aux: group(gp, x, aux)[:2], cfg)
+        for gp in params["groups"]:
+            x, aux = remat(gp, x, aux)
+        return x, None, aux
+    group_caches = []
+    for gp in params["groups"]:
+        x, aux, caches = group(gp, x, aux)
         group_caches.append(caches)
     caches = None
     if make_cache_len:

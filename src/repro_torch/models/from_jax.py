@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.tree import flatten_with_path
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.blocks import group_layout
 
@@ -38,11 +39,8 @@ def _index(tree, i: int):
     return np.asarray(tree)[i]
 
 
-def params_from_numpy(tree, cfg, *, device=None, dtype=torch.float32):
-    """``tree``: the reference's ``param.values(model_zoo.init(cfg, key))``
-    with every leaf converted to numpy.  Returns the port's tree on
-    ``device`` (default: the first GPU)."""
-    dev = resolve_device(device)
+def _unstack(tree, cfg):
+    """The reference's stacked layer axis -> a list of per-layer trees."""
     out = dict(tree)
     if cfg.is_encoder_decoder:
         for key, n in (("enc_layers", cfg.n_enc_layers),
@@ -54,4 +52,69 @@ def params_from_numpy(tree, cfg, *, device=None, dtype=torch.float32):
         stack["groups"] = [_index(stack["groups"], i)
                            for i in range(n_groups)]
         out["stack"] = stack
-    return _convert(out, dev, dtype)
+    return out
+
+
+def params_from_numpy(tree, cfg, *, device=None, dtype=torch.float32):
+    """``tree``: the reference's ``param.values(model_zoo.init(cfg, key))``
+    with every leaf converted to numpy.  Returns the port's tree on
+    ``device`` (default: the first GPU)."""
+    return _convert(_unstack(tree, cfg), resolve_device(device), dtype)
+
+
+def _as_tensor(arr, dev):
+    """A numpy leaf in its own type (a bf16 leaf, numpy's
+    ``bfloat16`` extension type, exactly)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def opt_state_from_numpy(state, cfg, *, device=None):
+    """``state``: the reference's ``init_opt_state`` / ``apply_updates``
+    state (``m``, ``v``, ``count``; or ``m``, ``vr``, ``vc``, ``count``)
+    with every leaf converted to numpy.  Returns the port's
+    (``optim.optimizer``'s) state on ``device``, each leaf in its own
+    type (``m`` in ``m_dtype``).
+
+    AdamW's moments are elementwise and cross over exactly.  Adafactor's
+    factored moments cross over where the reference's stacked leaf
+    factors as the port's per-layer leaf does (a matrix); the reference
+    factors a stacked vector (a norm scale, ``(layers, d)``) over its
+    layer axis, where the port's ``(d,)`` leaf is not factored: such a
+    state raises."""
+    dev = resolve_device(device)
+    out = {}
+    for key, tree in state.items():
+        if key == "count":
+            out[key] = torch.tensor(int(np.asarray(tree)),
+                                    dtype=torch.int32, device=dev)
+            continue
+        out[key] = _map(_unstack(tree, cfg), lambda a: _as_tensor(a, dev))
+    if "vc" in state:
+        _check_factored(out, cfg)
+    return out
+
+
+def _check_factored(state, cfg):
+    for (path, m), (_, vc) in zip(flatten_with_path(state["m"]),
+                                  flatten_with_path(state["vc"])):
+        matrix = m.dim() >= 2 and m.shape[-1] > 1 and m.shape[-2] > 1
+        want = (tuple(m.shape[:-2]) + tuple(m.shape[-1:]) if matrix
+                else (1,) * m.dim())
+        if tuple(vc.shape) != want:
+            raise ValueError(
+                f"{cfg.name}: Adafactor state at {'/'.join(map(str, path))} "
+                f"is factored over the reference's stacked layer axis "
+                f"(vc {tuple(vc.shape)}, the port's per-layer leaf wants "
+                f"{want})")

@@ -18,17 +18,21 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 
 
-def init(cfg: ArchConfig, seed: int = 0, *, device=None) -> Any:
+def init(cfg: ArchConfig, seed: int = 0, *, device=None,
+         dtype: torch.dtype = torch.bfloat16) -> Any:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     on ``device`` (default: the first GPU).  Matmul weights and
-    embeddings are stored in bf16; norm parameters and the tensors the
+    embeddings are stored in ``dtype`` (bf16 for serving; training
+    passes f32, the reference's storage, so that the optimizer's small
+    updates are not rounded away); norm parameters and the tensors the
     reference casts to f32 at use (mamba's ``A_log``, sLSTM's ``r``,
-    xLSTM's ``gn_scale``) in f32."""
+    xLSTM's ``gn_scale``) in f32.  Either storage gives the same values
+    at use: the model casts a weight to the activations' type."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if cfg.is_encoder_decoder:
-        return encdec_mod.init_encdec(gen, cfg, torch.bfloat16)
-    return tf_mod.init_lm(gen, cfg, torch.bfloat16)
+        return encdec_mod.init_encdec(gen, cfg, dtype)
+    return tf_mod.init_lm(gen, cfg, dtype)
 
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]):

@@ -18,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.tree import leaves as tree_leaves
+
 _CHUNK = 1 << 28                 # elements drawn in f32 at a time (1 GiB)
 
 
@@ -62,12 +64,8 @@ def param_bytes(tree) -> int:
 
 
 def leaves(tree):
-    """Every tensor of a tree of dicts and lists, depth first."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from leaves(v)
+    """Every tensor of a tree of dicts and lists, in ``core.tree``'s
+    order (the reference's)."""
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            yield x

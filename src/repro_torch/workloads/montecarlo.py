@@ -70,7 +70,7 @@ def simulate_photons(u: torch.Tensor) -> torch.Tensor:
 
 
 def run_hybrid(ex: HybridExecutor, n_photons: int = 1 << 18,
-               unit: int = 1 << 12) -> WorkSharedOutput:
+               unit: int = 1 << 12, plan_override=None) -> WorkSharedOutput:
     units = n_photons // unit
     placed = {g.name: _placed(n_photons, str(primary_device(g)))
               for g in ex.groups}
@@ -90,4 +90,5 @@ def run_hybrid(ex: HybridExecutor, n_photons: int = 1 << 18,
                  workload=f"MC/{n_photons}x{unit}",
                  unit_cost=unit_cost_terms(unit))
     return ex.run_work_shared("MC", units, run_share, combine,
-                              comm_cost=n_photons * N_STEPS * 4 / 6e9)
+                              comm_cost=n_photons * N_STEPS * 4 / 6e9,
+                              plan_override=plan_override)

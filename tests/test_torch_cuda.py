@@ -1806,3 +1806,157 @@ def test_kernel_lib_built_by_two_processes_at_once(gpu, tmp_path):
     assert (build / digests[0] / "libkernels.so").is_file()
     assert (build / f"{digests[0]}.lock").is_file()
     print(outs)
+
+
+# ---------------------------------------------------------------------------
+# training (the route under autograd, the trainer on the card)
+# ---------------------------------------------------------------------------
+# the CPU parity tests' tolerances (tests/torch_train_parity.py): the
+# loss; a gradient leaf's relative L2 error and cosine, or, for a leaf
+# below NOISE of the whole gradient's norm, its error absolutely
+TRAIN_LOSS_ATOL, TRAIN_GRAD_REL, TRAIN_GRAD_COS, TRAIN_NOISE = (
+    0.01, 0.1, 0.99, 1e-4)
+TRAIN_ROUTER_TIE = 0.01
+
+
+def _pinned_top_k(monkeypatch, orig, forced=None):
+    """The MoE's top-k ``orig`` recorded (or, with ``forced``, replaced
+    call by call by ``forced``'s); returns (own choices,
+    probabilities)."""
+    from repro_torch.models import moe
+
+    own, probs_seen = [], []
+
+    def top_k(probs, k):
+        vals, idx = orig(probs, k)
+        own.append(idx.cpu())
+        probs_seen.append(probs.detach().float().cpu())
+        if forced is None:
+            return vals, idx
+        idx = forced[len(own) - 1].to(probs.device)
+        return torch.gather(probs, -1, idx), idx
+
+    monkeypatch.setattr(moe, "_top_k", top_k)
+    return own, probs_seen
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "h2o-danube-1.8b"])
+def test_train_grads_on_gpu_match_the_cpus(gpu, arch, monkeypatch):
+    """``loss_fn``'s value and gradients on the card against the CPU's
+    from the same f32 weights, the card's MoE layers on the CPU's
+    experts (its own choices differing only at near-ties); K7 and K8
+    never launch under autograd."""
+    from repro_torch.configs import registry
+    from repro_torch.core.tree import flatten_with_path, leaves, unflatten
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.train.train_step import to_batch, value_and_grad
+
+    cfg = registry.get(arch).reduced()
+    cpu = model_zoo.init(cfg, 0, device="cpu", dtype=torch.float32)
+    card = unflatten(cpu, [p.to(gpu) for p in leaves(cpu)])
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 64),
+                                             dtype=np.int32)
+    b = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    top_k = moe._top_k
+    ref_idx, probs = _pinned_top_k(monkeypatch, top_k)
+    loss_c, _, g_c = value_and_grad(cpu, to_batch(b, "cpu"), cfg)
+    own, _ = _pinned_top_k(monkeypatch, top_k, forced=ref_idx)
+    common.reset_launches()
+    loss_g, _, g_g = value_and_grad(card, to_batch(b, gpu), cfg)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["flash_attention"] == 0
+    assert common.launch_counts()["gmm"] == 0
+    assert len(own) == len(ref_idx)
+    for r, o, p in zip(ref_idx, own, probs):
+        k = r.shape[-1]
+        for at in np.argwhere((np.sort(r.numpy(), -1)
+                               != np.sort(o.numpy(), -1)).any(-1)):
+            srt = np.sort(p[tuple(at)].numpy())[::-1]
+            assert srt[k - 1] - srt[k] < TRAIN_ROUTER_TIE
+    assert abs(float(loss_g) - float(loss_c)) <= TRAIN_LOSS_ATOL
+    total = float(torch.sqrt(sum(torch.sum(x.double() ** 2)
+                                 for x in leaves(g_c))))
+    for (path, a), c in zip(flatten_with_path(g_g), leaves(g_c)):
+        a, c = a.double().cpu().flatten(), c.double().flatten()
+        nc, err = float(c.norm()), float((a - c).norm())
+        if nc < TRAIN_NOISE * total:
+            assert err <= TRAIN_NOISE * total, path
+            continue
+        cos = float(a @ c) / max(float(a.norm()) * nc, 1e-30)
+        assert err / nc <= TRAIN_GRAD_REL and cos >= TRAIN_GRAD_COS, path
+
+
+@pytest.mark.needs_cuda
+def test_no_grad_forward_launches_k7_and_k8_on_gpu(gpu):
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+
+    cfg = registry.get("kimi-k2-1t-a32b").reduced()
+    params = model_zoo.init(cfg, 0, device=gpu, dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=gpu)
+    common.reset_launches()
+    with torch.no_grad():
+        logits, _ = model_zoo.forward(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["gmm"] > 0
+    assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.needs_cuda
+def test_kernels_raise_on_inputs_that_require_grad(gpu):
+    q = torch.randn((4, 64, 64), device=gpu, dtype=torch.bfloat16)
+    x = torch.randn((2, 64, 64), device=gpu, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="differentiable"):
+        flash_attention_cuda(q.clone().requires_grad_(), q, q)
+    with pytest.raises(NotImplementedError, match="differentiable"):
+        gmm_cuda(x, x.clone().requires_grad_())
+
+
+@pytest.mark.needs_cuda
+def test_trainer_on_gpu_matches_the_cpu_then_serves_with_k7(gpu):
+    """The trainer on the GPU + CPU pair (every micro-batch on the card)
+    against the simulated pair on the CPU from the same weights: the
+    same plans, losses within 0.02; then ``generate`` on the trained
+    f32 weights launches K7 on its tensor-core route."""
+    from repro_torch.configs.base import ArchConfig, ParallelConfig
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.ft.failure import FailureInjector
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.serve.serve_step import generate
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = ArchConfig(name="tiny", family="dense", n_layers=2, d_model=128,
+                     n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=512,
+                     head_dim=64, parallel=ParallelConfig(remat="dots"))
+    init = model_zoo.init(cfg, 0, device="cpu", dtype=torch.float32)
+    hist, trained = {}, {}
+    for where in ("cuda", "cpu"):
+        params = unflatten(init, [p.clone().to(where) for p in leaves(init)])
+        tr = Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=2,
+                                    total_steps=50),
+                     DataConfig(vocab_size=512, seq_len=32, micro_batch=2),
+                     TrainerConfig(accum_units=4, steps=4,
+                                   time_model=lambda g, k: k * (
+                                       0.001 if g == "accel" else 0.004)),
+                     injector=FailureInjector(kill={1: "host"},
+                                              revive={2: "host"}),
+                     device="cpu" if where == "cpu" else None)
+        assert tr.device.type == where
+        out = tr.run({"params": params,
+                      "opt": init_opt_state(tr.opt_cfg, params)})
+        hist[where], trained[where] = out["history"], out["params"]
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        assert (a.units, a.executed_units) == (b.units, b.executed_units)
+        assert abs(a.loss - b.loss) <= 0.02
+    common.reset_launches()
+    toks = generate(cfg, trained["cuda"],
+                    torch.ones((2, 64), dtype=torch.int64, device=gpu), 4)
+    counts, entries = common.launch_counts(), common.entry_counts()
+    assert counts["flash_attention"] > 0
+    assert entries["flash_attention_wgmma_bf16"] == counts["flash_attention"]
+    assert bool((toks >= 0).all()) and bool((toks < 512).all())

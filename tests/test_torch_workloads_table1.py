@@ -158,6 +158,22 @@ def test_run_hybrid_matches_reference(name):
     assert set(out.result.busy_times) == set(ref_out.result.busy_times)
 
 
+@pytest.mark.parametrize("plan", [[14, 2], [16, 0], [0, 16]])
+def test_montecarlo_runs_a_pinned_plan(plan):
+    """``plan_override`` runs exactly the pinned units on each group (no
+    steals), and the estimate passes the unpinned call's check."""
+    mine, ref = _mods("montecarlo")
+    kw = SIZES["montecarlo"]
+    assert sum(plan) == kw["n_photons"] // kw["unit"]
+    out = mine.run_hybrid(_port(), plan_override=plan, **kw)
+    assert out.trace.steals == 0
+    assert [out.trace.group_units.get(g, 0)
+            for g in ("accel", "host")] == plan
+    ref_value = float(ref.run_hybrid(RefExecutor(simulated_ratio=4.0),
+                                     **kw).value)
+    assert out.value == pytest.approx(ref_value, rel=1e-5)
+
+
 def test_listrank_ranks_walk_the_list():
     from repro_torch.workloads import listrank
     succ, head = listrank.make_list(1 << 10)
