@@ -100,7 +100,17 @@
    prefill and per step (all on ``gmm_wgmma_bf16``), prefill and step
    times, peak memory, the tokens against the plain path under the
    margin rule, K8's rows at the prefill (C = 480) and decode (C = 4)
-   shapes on the model's expert weights beside ``torch.bmm``; (b)
+   shapes on the model's expert weights beside ``torch.bmm``; then, on
+   the same weights, the mesh (``deepseek mesh ...`` lines): a
+   one-device mesh over cuda:0 (nccl, one rank), (a) the baseline's
+   prefill and 4 decode steps under ``use_mesh`` bitwise the no-mesh
+   logits with the same K8 launches, (b) ``get_optimized``'s shard_map
+   MoE (one-hot dispatch, capacity 1.05) through one ``generate`` of
+   1 x 1024 + 8 under the mesh, K8 3 times per MoE layer a forward, its
+   prefill and step times and K8's rows at the smap shapes (C = 100 at
+   prefill, C = 1 at decode), (c) layer 1's MoE in the smap form
+   against the dense one at a capacity that drops nothing, within 1e-2;
+   (b)
    minicpm3-4b, full width and all 62 MLA layers, on the continuous
    engine: a burst of 8 batch-1 requests (1024 + 16) into 4 slots, each
    request's tokens bitwise a solo ``generate`` and the 4-slot step's
@@ -208,6 +218,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1007,6 +1018,50 @@ def _union_s(spans) -> float:
     return total / 1e6
 
 
+def take_profile(torch, label, fn, marks=(), cpu=True, card_ran=None,
+                 retake=True):
+    """``fn()`` under torch.profiler (the CUDA activity, and the host's
+    where ``cpu``); returns its value, the profile's events, its device
+    events (kernels, copies and memsets: no annotation, and not the
+    device mirrors of the record_function ``marks``) and the seconds
+    ``fn()`` took.  A profile that kept no device event at all while
+    the card worked in the call (``card_ran(value)``; by default it
+    always does) is a trace the profiler lost, not an idle card: the
+    line says so, with the CUDA runtime calls the profile kept and how
+    far the host's wall clock moved against its monotonic one during
+    the call, and, where ``retake``, the call is profiled once more.
+    The caller's check holds the second take as it held the first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    for take in (1, 2):
+        wall_mono = time.time_ns() - time.monotonic_ns()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            wall = time.perf_counter() - t0
+        moved_ms = (time.time_ns() - time.monotonic_ns() - wall_mono) / 1e6
+        events = prof.events()
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and e.name not in marks
+                  and not getattr(e, "is_user_annotation", False)]
+        if device or (card_ran is not None and not card_ran(out)):
+            break
+        runtime = sum(1 for e in events if e.device_type == DeviceType.CPU
+                      and e.name.startswith("cuda"))
+        print(f"{label}: the profiler lost the call's device events (take "
+              f"{take}: 0 of them, {runtime} CUDA runtime calls kept, the "
+              f"wall clock moved {moved_ms!r} ms against the monotonic "
+              f"one)" + (": profiling the call once more"
+                         if retake and take == 1 else ""), flush=True)
+        if not retake:
+            break
+    return out, events, device, wall
+
+
 def profiled(torch, label, fn):
     """Run ``fn`` under torch.profiler and print the GPU's busy time
     inside the call's timed windows (the executor's chunk run and merge,
@@ -1016,16 +1071,19 @@ def profiled(torch, label, fn):
     windows (sort's binning) is left out.  Also prints the busy time of
     the whole call, the device time by name inside the windows and
     that of the workload's own kernel (``OWN_KERNEL``), where it has
-    one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    one.  A trace the profiler lost is taken once more
+    (``take_profile``)."""
     from repro_torch.core.hybrid_executor import TIMED_MERGE, TIMED_RUN
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-    events = prof.events()
     marks = (TIMED_RUN, TIMED_MERGE)
+
+    def units_of(out):
+        if out.trace is not None:
+            return dict(out.trace.group_units)
+        return dict(zip(out.result.busy_times, out.plan.units))
+
+    out, events, device, _ = take_profile(
+        torch, f"hybrid {label}", fn, marks,
+        card_ran=lambda out: units_of(out).get("accel", 0) > 0)
     # each window is the span of its marker's events: the host's record
     # and, where the main thread launched device work inside it (the
     # merge), the profiler's mirror of it on the device's timeline, an
@@ -1049,9 +1107,6 @@ def profiled(torch, label, fn):
                 lo = s0
             hi = max(hi, s1)
         windows.append((lo, hi))
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in marks
-              and not getattr(e, "is_user_annotation", False)]
     inside, by_name = [], {}
     for e in device:
         for w0, w1 in windows:
@@ -1062,10 +1117,8 @@ def profiled(torch, label, fn):
                 by_name[e.name] = (t + hi - lo, n + 1)
     busy = _union_s(inside)
     if busy <= 0:
-        trace = out.trace
-        units = trace.group_units if trace is not None else out.plan.units
         raise AssertionError(f"{label}: no device time inside the timed "
-                             f"windows (units by group {units}, "
+                             f"windows (units by group {units_of(out)}, "
                              f"{len(device)} device events in the call)")
     span = out.result.hybrid_time
     call = _union_s([(e.time_range.start, e.time_range.end)
@@ -1948,29 +2001,28 @@ def autotune_phase(torch, np, dev):
 # ---------------------------------------------------------------------------
 # LM phase
 # ---------------------------------------------------------------------------
-def profile_window(torch, label, fn, top=6):
+def profile_window(torch, label, fn, top=6, retake=True):
     """``fn()`` and a synchronisation under torch.profiler: the GPU's
     busy time (union of its kernel, copy and memset intervals) inside
     the window (the host's span of the call and its synchronisation),
-    the idle share, and the device time by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    the idle share, and the device time by name.  A trace the profiler
+    lost is taken once more where ``retake`` (``fn`` can run twice)."""
+    from torch.profiler import record_function
 
     mark = f"lm:{label}"
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def call():
         with record_function(mark):
             fn()
             torch.cuda.synchronize()
-    events = prof.events()
+
+    _, events, device, _ = take_profile(torch, label, call, (mark,),
+                                        retake=retake)
     spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.name == mark]
     w0, w1 = min(lo for lo, _ in spans), max(hi for _, hi in spans)
     inside, by_name = [], {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name == mark \
-                or getattr(e, "is_user_annotation", False):
-            continue
+    for e in device:
         lo, hi = max(e.time_range.start, w0), min(e.time_range.end, w1)
         if hi > lo:
             inside.append((lo, hi))
@@ -1993,20 +2045,15 @@ def profile_idle(torch, label, fn, top=6):
     memset intervals) against the call's wall time, the idle share, and
     the device time by name.  No host event is recorded: a training
     step makes ~10^5 of them, which ``profile_window`` would take tens
-    of seconds to read back."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    of seconds to read back.  A trace the profiler lost is taken once
+    more."""
+    def call():
         fn()
         torch.cuda.synchronize()
-        window = time.perf_counter() - t0
+
+    _, _, device, window = take_profile(torch, label, call, cpu=False)
     inside, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA \
-                or getattr(e, "is_user_annotation", False):
-            continue
+    for e in device:
         inside.append((e.time_range.start, e.time_range.end))
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
@@ -2786,8 +2833,10 @@ def _instrument(torch, common, stepper, engine_of):
         if n_live is not None and n_live == rec["profile_at"]:
             rec["profile_at"] = None
             out = []
+            # the engine's step moves its state on: taken once
             profile_window(torch, f"serve continuous engine step profiled "
-                           f"(live={n_live})", lambda: out.append(step(state)))
+                           f"(live={n_live})", lambda: out.append(step(state)),
+                           retake=False)
             return out[0]
         e0, t0 = common.entry_counts(), time.perf_counter()
         out = step(state)
@@ -3303,8 +3352,221 @@ def deepseek_phase(torch, dev):
         rows[-1].update(path="deepseek generate",
                         launches_per_prefill=per_prefill,
                         launches_per_decode_step=per_step[-1])
-    del params, flush
+    del flush
+    mesh_counts, mesh_rows = deepseek_mesh(torch, dev, cfg, params, prompt)
+    rows += mesh_rows
+    del params
     gc.collect()
+    return counts, mesh_counts, rows
+
+
+def _logits_run(torch, cfg, params, prompt, n_steps):
+    """The prefill's and ``n_steps`` greedy decode steps' logits."""
+    from repro_torch.models import model_zoo
+    P = prompt.shape[1]
+    with torch.inference_mode():
+        logits, caches = model_zoo.prefill(cfg, params, {"tokens": prompt},
+                                           P + n_steps)
+        out = [logits]
+        tok = logits[:, -1:].argmax(-1)
+        for t in range(n_steps):
+            logits, caches = model_zoo.decode_step(cfg, params, tok, caches,
+                                                   P + t)
+            out.append(logits)
+            tok = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    return out
+
+
+def deepseek_mesh(torch, dev, cfg, params, prompt):
+    """The mesh on the card: a one-device mesh over cuda:0 (an nccl
+    group of one rank), on deepseek-v2-lite-16b's full-width weights
+    that the deepseek phase holds.  (a) the baseline config's prefill
+    and 4 greedy decode steps under ``use_mesh`` give the no-mesh logits
+    bitwise, with the same K8 launches; (b) ``get_optimized``'s preset
+    (the shard_map MoE: one-hot dispatch, capacity 1.05, no overflow
+    pass) through one greedy ``generate`` of a 1 x 1024 prompt under
+    the mesh: K8 exactly 3 times per MoE layer per forward, its prefill
+    and step times, and K8's rows at the smap MoE's two new shapes; (c)
+    layer 1's MoE at full width, the smap form against the dense
+    ``moe_ffn`` at a capacity that drops no token, bf16, K8 on both,
+    within 1e-2.  Returns ((b)'s launch counts, the rows)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import common
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import sharding as ps
+    from repro_torch.serve.serve_step import (generate, make_prefill_step,
+                                              make_serve_step)
+
+    t_phase = time.perf_counter()
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.n_dense_layers
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_host_mesh()
+    print(f"deepseek mesh: {mesh} over {dev} (nccl, world "
+          f"{torch.distributed.get_world_size()}) built_s="
+          f"{time.perf_counter() - t0!r}", flush=True)
+    try:
+        # (a) the baseline under the mesh: the no-mesh logits bitwise
+        n_a = 4
+        runs = []
+        for under in (False, True):
+            common.reset_launches()
+            if under:
+                with ps.use_mesh(mesh):
+                    runs.append(_logits_run(torch, cfg, params, prompt, n_a))
+            else:
+                runs.append(_logits_run(torch, cfg, params, prompt, n_a))
+            runs[-1] = (runs[-1], common.launch_counts()["gmm"])
+        (plain_l, plain_k8), (mesh_l, mesh_k8) = runs
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(plain_l, mesh_l))
+        want_a = 3 * (1 + m.overflow_passes) * n_moe * (1 + n_a)
+        print(f"deepseek mesh (a): baseline prefill {tuple(prompt.shape)} "
+              f"+ {n_a} decode steps, mesh vs no mesh max_abs_diff="
+              f"{diff!r} bitwise={diff == 0.0} gmm_launches mesh="
+              f"{mesh_k8} no_mesh={plain_k8} predicted={want_a}",
+              flush=True)
+        if diff != 0.0 or not all(torch.equal(a, b)
+                                  for a, b in zip(plain_l, mesh_l)):
+            raise AssertionError(f"deepseek mesh (a): logits differ under "
+                                 f"the mesh (max {diff})")
+        if mesh_k8 != plain_k8 or mesh_k8 != want_a:
+            raise AssertionError(f"deepseek mesh (a): K8 launches {mesh_k8} "
+                                 f"under the mesh, {plain_k8} without, "
+                                 f"predicted {want_a}")
+        del plain_l, mesh_l, runs
+
+        # (b) the optimized preset through generate under the mesh
+        opt = registry.get_optimized(FAM_DEEPSEEK)
+        om = opt.moe
+        if (om.shard_mode, om.dispatch, om.capacity_factor,
+                om.overflow_passes) != ("smap", "onehot", 1.05, 0):
+            raise AssertionError(f"deepseek mesh (b): preset {om}")
+        prompt1 = prompt[:1]
+        P = prompt1.shape[1]
+        n_b = 8
+        calls = []
+        real = moe_mod.moe_ffn
+
+        def spy(p, x, c):
+            calls.append(tuple(x.shape))
+            return real(p, x, c)
+
+        with ps.use_mesh(mesh):
+            common.reset_launches()
+            moe_mod.moe_ffn = spy
+            try:
+                toks = generate(opt, params, prompt1, n_b)
+                torch.cuda.synchronize()
+            finally:
+                moe_mod.moe_ffn = real
+            counts = common.launch_counts()
+            entries = common.entry_counts()
+            # the dispatch group's capacity at each call: one group of
+            # all the call's tokens
+            cap = {n: max(1, int(n * om.top_k / om.n_routed
+                                 * om.capacity_factor)) for n in (P, 1)}
+            with torch.inference_mode():
+                prefill = make_prefill_step(opt, cache_len=P + n_b)
+                step = make_serve_step(opt)
+                t0 = time.perf_counter()
+                tok, caches = prefill(params, {"tokens": prompt1})
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                tok = tok.to(torch.int32)
+                step_s = []
+                for t in range(n_b):
+                    t0 = time.perf_counter()
+                    tok, caches = step(params, tok, caches, P + t)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                # where a smap step's time goes: K8, the one-rank nccl
+                # collectives, the host
+                profile_window(torch, "deepseek mesh (b) decode profiled",
+                               lambda: step(params, tok, caches,
+                                            P + n_b - 1))
+                del caches
+        want_b = 3 * n_moe * (1 + n_b)
+        print(f"deepseek mesh (b): get_optimized preset shard_mode="
+              f"{om.shard_mode} dispatch={om.dispatch} capacity_factor="
+              f"{om.capacity_factor} overflow_passes={om.overflow_passes} "
+              f"remat={opt.parallel.remat}; generate prompt={P} new={n_b} "
+              f"launches={counts} predicted gmm={want_b} (3 a MoE layer a "
+              f"forward, {n_moe} MoE layers, {1 + n_b} forwards) by entry: "
+              f"gmm_wgmma_bf16={entries['gmm_wgmma_bf16']} gmm_fma_bf16="
+              f"{entries['gmm_fma_bf16']}; smap calls {len(calls)}; "
+              f"capacity prefill C={cap[P]} decode C={cap[1]}", flush=True)
+        print(f"deepseek mesh (b): prefill ms={prefill_s * 1e3!r} "
+              f"tokens_per_s={P / prefill_s!r}; decode median_step_ms="
+              f"{statistics.median(step_s) * 1e3!r} min_step_ms="
+              f"{min(step_s) * 1e3!r}", flush=True)
+        if counts["gmm"] != want_b or entries["gmm_wgmma_bf16"] != want_b \
+                or counts["flash_attention"]:
+            raise AssertionError(f"deepseek mesh (b): launches {counts} "
+                                 f"{entries}, predicted gmm {want_b} on "
+                                 f"gmm_wgmma_bf16")
+        if calls != [(1, P, cfg.d_model)] * n_moe \
+                + [(1, 1, cfg.d_model)] * (n_moe * n_b):
+            raise AssertionError(f"deepseek mesh (b): smap MoE calls "
+                                 f"{calls[:3]}... ({len(calls)})")
+        if toks.shape != (1, n_b + 1) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"deepseek mesh (b): bad tokens {toks}")
+
+        # K8 at the smap MoE's shapes: one dispatch group of the call's
+        # tokens, experts whole on the one-rank data axis
+        flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+        w_up = params["stack"]["groups"][0]["l0"]["ffn"]["w_up"]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        rows = []
+        for label, c in (("deepseek smap prefill up", cap[P]),
+                         ("deepseek smap decode up", cap[1])):
+            x = torch.randn((m.n_routed, c, cfg.d_model), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            rows.append(_k8_row(torch, flush, label, x, w_up))
+            rows[-1].update(path="deepseek mesh generate",
+                            launches_per_prefill=3 * n_moe,
+                            launches_per_decode_step=3 * n_moe)
+        del flush
+
+        # (c) layer 1's MoE: smap against dense, no token dropped
+        lp = params["stack"]["groups"][0]["l0"]["ffn"]
+        cf = float(math.ceil(m.n_routed / m.top_k))
+        dense = cfg.replace(moe=dataclasses.replace(
+            m, capacity_factor=cf, overflow_passes=0))
+        smap = opt.replace(moe=dataclasses.replace(om, capacity_factor=cf))
+        x = torch.randn((1, P, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            common.reset_launches()
+            y0, a0 = moe_mod.moe_ffn(lp, x, dense)
+            k8_dense = common.launch_counts()["gmm"]
+            common.reset_launches()
+            with ps.use_mesh(mesh):
+                y1, a1 = moe_mod.moe_ffn(lp, x, smap)
+            k8_smap = common.launch_counts()["gmm"]
+        torch.cuda.synchronize()
+        err = (y0.float() - y1.float()).abs().max().item()
+        print(f"deepseek mesh (c): layer 1 MoE at x {tuple(x.shape)} bf16, "
+              f"capacity_factor={cf} (>= {m.n_routed}/{m.top_k}: no drop): "
+              f"smap vs dense max_abs_err={err!r} aux {a1.item()!r} vs "
+              f"{a0.item()!r}; gmm launches smap={k8_smap} dense="
+              f"{k8_dense}", flush=True)
+        torch.testing.assert_close(
+            y1.float(), y0.float(), rtol=1e-2, atol=1e-2,
+            msg=lambda s: f"deepseek mesh (c): smap vs dense: {s}")
+        if k8_smap != 3 or k8_dense != 3:
+            raise AssertionError(f"deepseek mesh (c): K8 launches smap "
+                                 f"{k8_smap}, dense {k8_dense}, want 3 each")
+    finally:
+        mesh_mod.release()
+    if torch.distributed.is_initialized():
+        raise AssertionError("deepseek mesh: process group left behind")
+    print(f"deepseek mesh: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return counts, rows
 
 
@@ -4387,6 +4649,8 @@ def fleet_proc_phase(torch, np):
             _check_value(torch, "fleet proc", wl, payload, value, refs)
     finally:
         router.shutdown(timeout=120)
+        # the children are gone: their shared store goes with them
+        shutil.rmtree(store, ignore_errors=True)
     p50, p95, p99 = _fleet_latency(np, futs, done_at)
     print(f"fleet proc: workers={FLEET_WORKERS} (ProcWorker children on "
           f"cuda:0) start_s={t_start!r} warm_s={t_warm!r} stream "
@@ -4935,7 +5199,8 @@ def main() -> None:
     # the model families: MLA (deepseek on K8, minicpm3 through the
     # engine) and the encoder-decoder (whisper on K7's full route)
     t0 = time.perf_counter()
-    per_call["deepseek generate"], fam_rows = deepseek_phase(torch, dev)
+    per_call["deepseek generate"], per_call["deepseek mesh"], fam_rows = \
+        deepseek_phase(torch, dev)
     per_call["minicpm3 continuous"] = minicpm_phase(torch, np)
     per_call["whisper"], whisper_rows = whisper_phase(torch, dev)
     rows += fam_rows + whisper_rows

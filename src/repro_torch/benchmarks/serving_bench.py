@@ -69,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -418,9 +419,13 @@ def two_process_check(verbose: bool = True, device=None):
                           f"two-process child {phase}")
 
     for attempt in range(3):
-        env = _child_env(tempfile.mkdtemp(prefix="repro-serve-2proc-"))
-        a = child("a", env)
-        b = child("b", env)
+        store = tempfile.mkdtemp(prefix="repro-serve-2proc-")
+        try:
+            env = _child_env(store)
+            a = child("a", env)
+            b = child("b", env)
+        finally:                      # both children have exited
+            shutil.rmtree(store, ignore_errors=True)
         if a["probe_runs"] >= 2 or b["probe_runs"] == 0:
             break
     if verbose:
@@ -782,22 +787,30 @@ def fleet_cold_join_check(mix, verbose: bool = True, device=None,
     probes_a = probes_b = None
     for attempt in range(3):
         tmp = tempfile.mkdtemp(prefix="repro-fleet-cold-", dir=root)
-        ra = _fleet_router(1, tmp, env_extra=extra, device=device)
-        for _ in range(3):
-            for f in [ra.submit(wl, p) for wl, p in mix]:
-                f.result(timeout=560)
-        stats_a = ra.refresh_stats(timeout=10.0)
-        probes_a = stats_a.get("fw0", {}).get("probe_runs", -1)
-        ra.shutdown(timeout=60)       # worker exit flushes the store
+        routers = []
+        try:
+            ra = _fleet_router(1, tmp, env_extra=extra, device=device)
+            routers.append(ra)
+            for _ in range(3):
+                for f in [ra.submit(wl, p) for wl, p in mix]:
+                    f.result(timeout=560)
+            stats_a = ra.refresh_stats(timeout=10.0)
+            probes_a = stats_a.get("fw0", {}).get("probe_runs", -1)
+            ra.shutdown(timeout=60)   # worker exit flushes the store
 
-        cold = ProcWorker("coldw", env=_fleet_env(tmp, extra),
-                          hb_interval_s=0.2, device=device)
-        rb = Router([cold], hb_timeout_s=5.0).start()
-        for f in [rb.submit(wl, p) for wl, p in mix]:
-            f.result(timeout=560)
-        stats_b = rb.refresh_stats(timeout=10.0)
-        probes_b = stats_b.get("coldw", {}).get("probe_runs", -1)
-        rb.shutdown(timeout=60)
+            cold = ProcWorker("coldw", env=_fleet_env(tmp, extra),
+                              hb_interval_s=0.2, device=device)
+            rb = Router([cold], hb_timeout_s=5.0).start()
+            routers.append(rb)
+            for f in [rb.submit(wl, p) for wl, p in mix]:
+                f.result(timeout=560)
+            stats_b = rb.refresh_stats(timeout=10.0)
+            probes_b = stats_b.get("coldw", {}).get("probe_runs", -1)
+        finally:
+            # the store goes once its workers are shut down
+            for r in routers:
+                r.shutdown(timeout=60)
+            shutil.rmtree(tmp, ignore_errors=True)
         if probes_a >= 2 or probes_b == 0:
             break
     if verbose:
@@ -852,31 +865,40 @@ def run_fleet(smoke: bool, mix=None, trace_path=None, device=None):
     rejoined = False
     for attempt in range(3):
         store = tempfile.mkdtemp(prefix="repro-fleet-")
-        rb = _fleet_router(k, store, device=device)
-        _broadcast_warm(rb, mix)
-        b = _replay_fleet(rb, trace)
-        rb.shutdown(timeout=60)
+        routers = []
+        try:
+            rb = _fleet_router(k, store, device=device)
+            routers.append(rb)
+            _broadcast_warm(rb, mix)
+            b = _replay_fleet(rb, trace)
+            rb.shutdown(timeout=60)
 
-        rc = _fleet_router(k, store, device=device)
-        _broadcast_warm(rc, mix)
-        if trace_path:
-            # a clean buffer per attempt: the export after the loop
-            # holds exactly one chaos replay's stitched timeline
-            get_recorder().clear()
-        inj = ChaosInjector([
-            ProcFault(t=t_kill, worker=f"fw{k - 1}", kind="kill9"),
-            ProcFault(t=t_restart, worker=f"fw{k - 1}", kind="restart"),
-        ])                                   # single-use: fresh each try
-        c = _replay_fleet(rc, trace, chaos=inj)
-        # the restarted child needs seconds (imports, a CUDA context) to
-        # beat again;
-        # the rejoin gate waits past the trace end for it
-        deadline = time.monotonic() + 60.0
-        while (rc.stats.worker_rejoins < 1
-               and time.monotonic() < deadline):
-            time.sleep(0.2)
-        c["worker_rejoins"] = rc.stats.worker_rejoins
-        rc.shutdown(timeout=60)
+            rc = _fleet_router(k, store, device=device)
+            routers.append(rc)
+            _broadcast_warm(rc, mix)
+            if trace_path:
+                # a clean buffer per attempt: the export after the loop
+                # holds exactly one chaos replay's stitched timeline
+                get_recorder().clear()
+            inj = ChaosInjector([
+                ProcFault(t=t_kill, worker=f"fw{k - 1}", kind="kill9"),
+                ProcFault(t=t_restart, worker=f"fw{k - 1}",
+                          kind="restart"),
+            ])                               # single-use: fresh each try
+            c = _replay_fleet(rc, trace, chaos=inj)
+            # the restarted child needs seconds (imports, a CUDA
+            # context) to beat again; the rejoin gate waits past the
+            # trace end for it
+            deadline = time.monotonic() + 60.0
+            while (rc.stats.worker_rejoins < 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.2)
+            c["worker_rejoins"] = rc.stats.worker_rejoins
+        finally:
+            # the store goes once its workers are shut down
+            for r in routers:
+                r.shutdown(timeout=60)
+            shutil.rmtree(store, ignore_errors=True)
 
         dropped += (b["dropped_without_rejection"]
                     + c["dropped_without_rejection"])
@@ -993,10 +1015,13 @@ def lm_cold_start_check(verbose: bool = True, device=None):
     never probes; this demonstrates the zero-cold-start contract)."""
     import tempfile
 
-    env = _child_env(tempfile.mkdtemp(prefix="repro-serve-lmcold-"))
-    out = _run_child(_LM_CHILD_CODE,
-                     ["gpu" if device is None else str(device)], env,
-                     "LM cold-start child")
+    store = tempfile.mkdtemp(prefix="repro-serve-lmcold-")
+    try:
+        out = _run_child(_LM_CHILD_CODE,
+                         ["gpu" if device is None else str(device)],
+                         _child_env(store), "LM cold-start child")
+    finally:                          # the child has exited
+        shutil.rmtree(store, ignore_errors=True)
     if verbose:
         print(f"serving/cold_probe_lm_{LM_VERSION},"
               f"{out['probe_runs']:.0f},"

@@ -7,9 +7,19 @@ parallelism: serialization overlaps the next training steps).
 
 The reference's format: a leaf's path joins its dict keys and its list
 indices (``[i]``) with ``/``, in the reference's leaf order
-(``core.tree``), so either package restores the other's checkpoints.
-numpy has no bf16: a bf16 leaf is stored as its ``uint16`` bits, with
-``"dtype": "bfloat16"`` in the manifest, and restored bit for bit.
+(``core.tree``).  So either package restores the other's checkpoint of
+a tree of the same structure with f32 or int leaves.  Two things do not
+cross over:
+
+  * model state: the reference stacks its layer groups on a leading
+    axis (``stack/groups/<leaf>``), the port keeps a list of per-group
+    trees (``stack/groups/[i]/<leaf>``), so a reference checkpoint of
+    parameters restored into the port's tree raises ``KeyError`` naming
+    the first per-group leaf it lacks;
+  * bf16 leaves: numpy has no bf16, so a bf16 leaf is stored as its
+    ``uint16`` bits with ``"dtype": "bfloat16"`` in the manifest.  The
+    port restores it bit for bit; the reference reads no manifest type
+    and restores those ``uint16`` bits as numbers.
 
 At 1000-node scale each host writes only the shards it owns; here the
 single host writes everything, but the manifest already records per-leaf

@@ -1,10 +1,11 @@
 """Registry of assigned architectures (``--arch <id>``)."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import List
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, SHAPES, shape_applicable
 
 _MODULES = {
     "xlstm-350m": "xlstm_350m",
@@ -34,3 +35,35 @@ def get(arch_id: str) -> ArchConfig:
             raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[key]}")
     return mod.CONFIG
+
+
+def get_optimized(arch_id: str) -> ArchConfig:
+    """The §Perf winning configuration per family: the shard_map MoE
+    with lean capacity (one-hot dispatch, capacity 1.05, no overflow
+    pass, the all_to_all results pinned by the named remat policy) for
+    MoE archs; the pure-FSDP layout for mid-size dense archs; the
+    baseline elsewhere."""
+    cfg = get(arch_id)
+    if cfg.moe is not None:
+        moe = dataclasses.replace(cfg.moe, shard_mode="smap",
+                                  dispatch="onehot", capacity_factor=1.05,
+                                  overflow_passes=0)
+        remat = ("full_names" if cfg.parallel.remat == "full"
+                 else "dots_names")
+        return cfg.replace(moe=moe, parallel=dataclasses.replace(
+            cfg.parallel, remat=remat))
+    if cfg.family in ("dense", "vlm") and cfg.parallel.fsdp:
+        return cfg.replace(parallel=dataclasses.replace(
+            cfg.parallel, layout="fsdp"))
+    return cfg
+
+
+def all_cells():
+    """Every (arch, shape) cell with its applicability flag and reason."""
+    out = []
+    for aid in ARCH_IDS:
+        cfg = get(aid)
+        for cell in SHAPES:
+            ok, why = shape_applicable(cfg, cell)
+            out.append((aid, cell, ok, why))
+    return out

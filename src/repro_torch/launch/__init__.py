@@ -1,1 +1,2 @@
-"""Command-line launchers."""
+"""Command-line launchers, the device meshes and their axes trees, and
+the analytic FLOP and byte model."""

@@ -13,9 +13,11 @@ Sliding windows and logit softcaps keep the grouped-einsum ``_sdpa``,
 and so does the decode step, as in the reference.  A call that autograd
 records (grad mode on, an input or weight that requires grad) takes
 ``_sdpa`` too: K7, like the reference's kernel, defines no backward,
-and the reference's differentiated layers take this formulation.  There is no mesh
-here, so the reference's ``kv_repeat`` (KV heads repeated to shard over
-a model axis) is always 1 and is left out.
+and the reference's differentiated layers take this formulation.  The
+reference's ``shard_act`` sites are kept (``parallel.sharding``); its
+``kv_repeat`` (KV heads repeated to shard over a model axis of size
+``tp``) is always 1 here and is left out until the dry-run at tp = 16
+needs it.
 """
 from __future__ import annotations
 
@@ -25,23 +27,24 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        rms_norm_simple, softmax)
 from repro_torch.models.param import ones_init
+from repro_torch.parallel.sharding import shard_act
 
 
 def init_attention(gen, cfg, dtype):
     dh = cfg.head_dim_()
     p = {
         "wq": init_linear(gen, cfg.d_model, cfg.n_heads * dh, dtype,
-                          cfg.use_bias),
+                          cfg.use_bias, axes=("embed", "q_hidden")),
         "wk": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype,
-                          cfg.use_bias),
+                          cfg.use_bias, axes=("embed", "kv_hidden")),
         "wv": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype,
-                          cfg.use_bias),
+                          cfg.use_bias, axes=("embed", "kv_hidden")),
         "wo": init_linear(gen, cfg.n_heads * dh, cfg.d_model, dtype,
-                          cfg.use_bias),
+                          cfg.use_bias, axes=("q_hidden", "embed")),
     }
     if cfg.qk_norm:
-        p["q_norm"] = ones_init((dh,), gen.device)
-        p["k_norm"] = ones_init((dh,), gen.device)
+        p["q_norm"] = ones_init((dh,), gen.device, axes=(None,))
+        p["k_norm"] = ones_init((dh,), gen.device, axes=(None,))
     return p
 
 
@@ -114,6 +117,9 @@ def attention(params, x, cfg, *, sin=None, cos=None, causal: bool = True,
     """Full-sequence attention. Returns (y, cache_or_None)."""
     B, T, _ = x.shape
     q, k, v = _qkv(params, x, cfg, sin, cos)
+    q = shard_act(q, ("batch", None, "heads", None))
+    k = shard_act(k, ("batch", "seq_kv", "heads", None))
+    v = shard_act(v, ("batch", "seq_kv", "heads", None))
     if _can_use_tuned_sdpa(cfg, causal, q, k, v):
         out = flash_ops.sdpa(q, k, v, causal=causal)
     else:
@@ -172,6 +178,8 @@ def attention_decode(params, x, cfg, cache, position, *, sin=None,
         cache["k"][rows, slot] = k[:, 0]
         cache["v"][rows, slot] = v[:, 0]
         pos, idx = pos[:, None], idx[None, :]
+    cache["k"] = shard_act(cache["k"], ("batch", "seq_kv", "heads", None))
+    cache["v"] = shard_act(cache["v"], ("batch", "seq_kv", "heads", None))
     if cfg.sliding_window:
         # ring buffer: until it wraps only slots <= position are valid;
         # once full, every slot holds one of the last L tokens.

@@ -19,8 +19,12 @@ its solo step.
 A training forward (autograd recording, no caches) wraps each group in
 the config's ``parallel.remat``: ``"dots"`` keeps the matmuls' outputs
 and recomputes the rest in the backward (the reference's
-``checkpoint_dots``), ``"full"`` recomputes the whole group.  Neither
-changes a value.
+``checkpoint_dots``), ``"full"`` recomputes the whole group.  The named
+policies keep what ``layers.checkpoint_name`` names as well:
+``"dots_names"`` the matmuls and the smap MoE's all_to_all results
+(``moe_a2a_in`` / ``moe_a2a_out``), ``"full_names"`` only those, and
+``"boundaries"`` only each layer's residual outputs (``blk_attn_out`` /
+``blk_ffn_out``).  None changes a value.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import functools
 from typing import List, Tuple
 
 import torch
-from torch.utils.checkpoint import (checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
@@ -36,7 +40,10 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import init_mlp, init_norm, mlp, norm
+from repro_torch.models.layers import (checkpoint_name,
+                                       current_checkpoint_name, init_mlp,
+                                       init_norm, mlp, norm)
+from repro_torch.parallel.sharding import shard_act
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +114,15 @@ def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
     raise ValueError(kind)
 
 
-def _ffn(params, x, cfg, use_moe: bool):
+def _residual(x, y, cfg, name):
+    """``x + y`` constrained to the residual's axes and named (the
+    full-sequence layer's two block boundaries)."""
+    seq_ax = "seq" if cfg.parallel.seq_parallel else None
+    with checkpoint_name(name):
+        return shard_act(x + y, ("batch", seq_ax, "embed"))
+
+
+def _ffn(params, x, cfg, use_moe: bool, boundary: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in params:
         h = norm(params["norm2"], x, cfg)
@@ -115,7 +130,7 @@ def _ffn(params, x, cfg, use_moe: bool):
             y, aux = moe_mod.moe_ffn(params["ffn"], h, cfg)
         else:
             y = mlp(params["ffn"], h, cfg)
-        x = x + y
+        x = _residual(x, y, cfg, "blk_ffn_out") if boundary else x + y
     return x, aux
 
 
@@ -141,7 +156,8 @@ def apply_layer(params, x, cfg, kind: str, use_moe: bool, *, sin, cos,
         cache = st if make_cache_len > 0 else None
     else:
         raise ValueError(kind)
-    x, aux = _ffn(params, x + y, cfg, use_moe)
+    x = _residual(x, y, cfg, "blk_attn_out")
+    x, aux = _ffn(params, x, cfg, use_moe, boundary=True)
     return x, cache, aux
 
 
@@ -181,24 +197,43 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
          torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default]
 
 
+# the named policies: (keep the dots too, the names they keep)
+_A2A_NAMES = ("moe_a2a_in", "moe_a2a_out")
+_NAMED = {"dots_names": (True, _A2A_NAMES),
+          "full_names": (False, _A2A_NAMES),
+          "boundaries": (False, ("blk_attn_out", "blk_ffn_out"))}
+
+
+def _named_policy(dots: bool, names):
+    """Selective-checkpoint policy: save the outputs of every op
+    dispatched under one of ``names`` (and of the dots if ``dots``), so
+    the recompute never re-runs them (an all_to_all among them);
+    recompute the rest."""
+    def policy(ctx, op, *args, **kwargs):
+        if current_checkpoint_name() in names or (dots and op in _DOTS):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
 def _remat_wrap(fn, cfg):
-    """``fn`` under the config's rematerialisation policy.  The named
-    policies (``dots_names``, ``full_names``, ``boundaries``) pin the
-    results of collectives, which come with the mesh."""
+    """``fn`` under the config's rematerialisation policy."""
     remat = cfg.parallel.remat
     if remat == "none":
         return fn
     if remat == "dots":
         ctx = functools.partial(create_selective_checkpoint_contexts, _DOTS)
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                     context_fn=ctx)
-    if remat == "full":
+    elif remat == "full":
+        ctx = None
+    elif remat in _NAMED:
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _named_policy(*_NAMED[remat]))
+    else:
+        raise ValueError(f"remat={remat!r}")
+    if ctx is None:
         return lambda *a: checkpoint(fn, *a, use_reentrant=False)
-    if remat in ("dots_names", "full_names", "boundaries"):
-        raise NotImplementedError(
-            f"remat={remat!r} pins the results of collectives: it comes "
-            f"with the mesh slice (ROADMAP queue 1, item 9)")
-    raise ValueError(f"remat={remat!r}")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 context_fn=ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (embed, init_embedding, init_mlp,
                                        init_norm, init_unembed, mlp, norm,
                                        unembed)
+from repro_torch.parallel.sharding import shard_act
 
 
 def sinusoid_pos(T: int, d: int, offset: int = 0, device=None):
@@ -66,11 +67,13 @@ def encode(params, frames, cfg):
     """frames: (B, S, d) stub embeddings -> encoder output (bf16)."""
     pos = sinusoid_pos(frames.shape[1], cfg.d_model, device=frames.device)
     x = (frames + pos.to(frames.dtype)).to(torch.bfloat16)
+    x = shard_act(x, ("batch", None, "embed"))
     for lp in params["enc_layers"]:
         h = norm(lp["norm1"], x, cfg)
         y, _ = attn_mod.attention(lp["attn"], h, cfg, causal=False)
         x = x + y
         x = x + mlp(lp["mlp"], norm(lp["norm2"], x, cfg), cfg)
+        x = shard_act(x, ("batch", None, "embed"))
     return norm(params["enc_norm"], x, cfg)
 
 
@@ -91,6 +94,7 @@ def decode_train(params, enc_out, dec_tokens, cfg, *,
     x = embed(params["dec_embed"], dec_tokens, cfg)
     x = x + sinusoid_pos(x.shape[1], cfg.d_model,
                          device=x.device).to(x.dtype)
+    x = shard_act(x, ("batch", None, "embed"))
     caches = []
     for lp in params["dec_layers"]:
         # cross-attn K/V computed per layer from encoder output

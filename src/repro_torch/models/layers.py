@@ -6,10 +6,15 @@ f32 scale (the mean summed in two fixed stages, the same bits for a
 row in a batch of any size), matmul weights cast to the
 activations' type at use, the
 embedding gathered in bf16, RoPE in f32 on split halves.  The
-reference's ``shard_act`` annotations have no counterpart on one GPU.
+reference's ``shard_act`` annotations are kept at the same sites with
+the same logical axes (``parallel.sharding``): a no-op without a mesh
+and for this rank's plain tensors, a redistribution for a DTensor.
+Every initialiser takes the leaf's logical axes (``models.param``).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.param import (dense_init, embed_init, ones_init,
                                       zeros_init)
+from repro_torch.parallel.sharding import shard_act
 
 def _silu(x):
     # jax.nn.silu's formula, one rounding per op in the input's type
@@ -60,9 +66,9 @@ ACTS = {
 # ---------------------------------------------------------------------------
 def init_norm(cfg, device, dim: int = 0):
     d = dim or cfg.d_model
-    p = {"scale": ones_init((d,), device)}
+    p = {"scale": ones_init((d,), device, axes=(None,))}
     if cfg.norm_type == "layernorm":
-        p["bias"] = zeros_init((d,), device)
+        p["bias"] = zeros_init((d,), device, axes=(None,))
     return p
 
 
@@ -109,10 +115,10 @@ def rms_norm_simple(x, scale, eps: float = 1e-6):
 # Linear
 # ---------------------------------------------------------------------------
 def init_linear(gen, d_in: int, d_out: int, dtype, use_bias: bool = False,
-                scale: float = 1.0):
-    p = {"w": dense_init(gen, (d_in, d_out), dtype, scale=scale)}
+                scale: float = 1.0, *, axes=(None, None)):
+    p = {"w": dense_init(gen, (d_in, d_out), dtype, scale=scale, axes=axes)}
     if use_bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        p["b"] = zeros_init((d_out,), gen.device, dtype, axes=(axes[1],))
     return p
 
 
@@ -128,10 +134,13 @@ def linear(params, x):
 # ---------------------------------------------------------------------------
 def init_mlp(gen, cfg, dtype, d_ff: int = 0):
     d_ff = d_ff or cfg.d_ff
-    p = {"up": init_linear(gen, cfg.d_model, d_ff, dtype, cfg.use_bias),
-         "down": init_linear(gen, d_ff, cfg.d_model, dtype, cfg.use_bias)}
+    p = {"up": init_linear(gen, cfg.d_model, d_ff, dtype, cfg.use_bias,
+                           axes=("embed", "mlp")),
+         "down": init_linear(gen, d_ff, cfg.d_model, dtype, cfg.use_bias,
+                             axes=("mlp", "embed"))}
     if cfg.mlp_gated:
-        p["gate"] = init_linear(gen, cfg.d_model, d_ff, dtype, cfg.use_bias)
+        p["gate"] = init_linear(gen, cfg.d_model, d_ff, dtype, cfg.use_bias,
+                                axes=("embed", "mlp"))
     return p
 
 
@@ -142,6 +151,7 @@ def mlp(params, x, cfg):
         h = h * act(linear(params["gate"], x))
     else:
         h = act(h)
+    h = shard_act(h, ("batch", None, "mlp"))
     return linear(params["down"], h)
 
 
@@ -149,7 +159,8 @@ def mlp(params, x, cfg):
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 def init_embedding(gen, cfg, dtype):
-    return {"table": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)}
+    return {"table": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                                axes=("vocab", "embed"))}
 
 
 def embed(params, token_ids, cfg):
@@ -158,7 +169,7 @@ def embed(params, token_ids, cfg):
 
 def init_unembed(gen, cfg, dtype):
     return {"w": dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
-                            fan_in=cfg.d_model)}
+                            fan_in=cfg.d_model, axes=("embed", "vocab"))}
 
 
 def unembed(params, x, cfg, embed_params=None):
@@ -198,6 +209,35 @@ def apply_rope(x, sin, cos):
         cos = cos[None, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint names (the reference's ``checkpoint_name``)
+# ---------------------------------------------------------------------------
+class _Name(threading.local):
+    name: Optional[str] = None
+
+
+_NAME = _Name()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Name the tensors computed in the block (the reference names one
+    tensor with ``jax.ad_checkpoint.checkpoint_name``).  A named remat
+    policy (``blocks._remat_wrap``) sees every op dispatched inside the
+    block under this name, saves its outputs in the forward and never
+    re-runs it in the backward's recompute; without such a policy the
+    name does nothing."""
+    old, _NAME.name = _NAME.name, name
+    try:
+        yield
+    finally:
+        _NAME.name = old
+
+
+def current_checkpoint_name() -> Optional[str]:
+    return _NAME.name
 
 
 # ---------------------------------------------------------------------------

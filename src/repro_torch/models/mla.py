@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        rms_norm_simple, softmax)
 from repro_torch.models.param import ones_init
+from repro_torch.parallel.sharding import shard_act
 
 
 def _dims(cfg):
@@ -35,16 +36,20 @@ def init_mla(gen, cfg, dtype):
     H, d = cfg.n_heads, cfg.d_model
     p = {}
     if cfg.mla.q_lora_rank:
-        p["wq_a"] = init_linear(gen, d, cfg.mla.q_lora_rank, dtype)
-        p["q_norm"] = ones_init((cfg.mla.q_lora_rank,), gen.device)
+        p["wq_a"] = init_linear(gen, d, cfg.mla.q_lora_rank, dtype,
+                                axes=("embed", "q_lora"))
+        p["q_norm"] = ones_init((cfg.mla.q_lora_rank,), gen.device,
+                                axes=(None,))
         p["wq_b"] = init_linear(gen, cfg.mla.q_lora_rank, H * (dn + dr),
-                                dtype)
+                                dtype, axes=("q_lora", "q_hidden"))
     else:
-        p["wq"] = init_linear(gen, d, H * (dn + dr), dtype)
-    p["wkv_a"] = init_linear(gen, d, kvl + dr, dtype)
-    p["kv_norm"] = ones_init((kvl,), gen.device)
-    p["wkv_b"] = init_linear(gen, kvl, H * (dn + dv), dtype)
-    p["wo"] = init_linear(gen, H * dv, d, dtype)
+        p["wq"] = init_linear(gen, d, H * (dn + dr), dtype,
+                              axes=("embed", "q_hidden"))
+    p["wkv_a"] = init_linear(gen, d, kvl + dr, dtype, axes=("embed", None))
+    p["kv_norm"] = ones_init((kvl,), gen.device, axes=(None,))
+    p["wkv_b"] = init_linear(gen, kvl, H * (dn + dv), dtype,
+                             axes=("kv_lora", "q_hidden"))
+    p["wo"] = init_linear(gen, H * dv, d, dtype, axes=("q_hidden", "embed"))
     return p
 
 
@@ -157,14 +162,17 @@ def mla_decode(params, x, cfg, cache, position, *, sin=None, cos=None):
     if isinstance(position, int):
         ckv[:, position] = c_kv[:, 0]
         kr[:, position] = k_rope[:, 0]
-        valid = (idx <= position).reshape(1, 1, 1, L)
-        out = _absorbed(q_nope, q_rope, ckv, kr, valid, wk, wv, scale,
-                        x.dtype)
     else:
         pos = position.to(x.device)
         rows = torch.arange(B, device=x.device)
         ckv[rows, pos] = c_kv[:, 0]
         kr[rows, pos] = k_rope[:, 0]
+    ckv = shard_act(ckv, ("batch", "seq_kv", None))
+    if isinstance(position, int):
+        valid = (idx <= position).reshape(1, 1, 1, L)
+        out = _absorbed(q_nope, q_rope, ckv, kr, valid, wk, wv, scale,
+                        x.dtype)
+    else:
         valid = (idx[None, :] <= pos[:, None]).reshape(B, 1, 1, L)
         out = torch.cat([
             _absorbed(q_nope[b:b + 1], q_rope[b:b + 1], ckv[b:b + 1],

@@ -5,6 +5,13 @@ attention, MLA, mamba (jamba's interleave) or xLSTM layers, with dense
 or MoE FFNs, token or stub-embedding inputs — and encoder-decoder
 models.  Every entry runs on the device its parameters lie on; ``init``
 puts them on the first GPU unless it is given ``device="cpu"``.
+
+``param_specs`` and ``input_specs`` give shape stand-ins (fake tensors:
+a shape and a type, no storage) for the sharding rules and the
+dry-run; the parameters' logical axes come from the initialisers
+(``models.param.recording_axes``).  The reference's ``tp=`` (KV heads
+repeated for a model axis) is not taken: the port keeps no
+``kv_repeat``.
 """
 from __future__ import annotations
 
@@ -12,9 +19,10 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import param as param_mod
 from repro_torch.models import transformer as tf_mod
 
 
@@ -91,3 +99,59 @@ def decode_step(cfg: ArchConfig, params, token, caches, position):
     if cfg.is_encoder_decoder:
         return encdec_mod.decode_step(params, token, cfg, caches, position)
     return tf_mod.lm_decode_step(params, token, cfg, caches, position)
+
+
+# ---------------------------------------------------------------------------
+# Shape stand-ins for the sharding rules and the dry-run (no allocation)
+# ---------------------------------------------------------------------------
+def _fake_mode():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode()
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, Any]:
+    """Stand-ins for every model input of this (arch x shape) cell: the
+    batch dict for train / prefill; for decode one new ``token`` per
+    row, a scalar ``position`` and the caches of ``cell.seq_len``
+    tokens (``init_caches``' tree; an encoder-decoder's holds its
+    encoder's cross K/V)."""
+    B, T = cell.global_batch, cell.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    with _fake_mode():
+        def sds(shape, dtype):
+            return torch.empty(shape, dtype=dtype)
+
+        if cell.kind in ("train", "prefill"):
+            if cfg.is_encoder_decoder:
+                return {"frames": sds((B, T, cfg.d_model), bf16),
+                        "dec_tokens": sds((B, T), i32),
+                        "labels": sds((B, T), i32)}
+            if cfg.frontend != "none":
+                return {"embeds": sds((B, T, cfg.d_model), bf16),
+                        "labels": sds((B, T), i32)}
+            return {"tokens": sds((B, T), i32), "labels": sds((B, T), i32)}
+
+        # decode: one new token against a cache of T tokens
+        token, position = sds((B, 1), i32), sds((), i32)
+        if cfg.is_encoder_decoder:
+            params = init(cfg, 0, device="cpu")
+            caches = encdec_mod.init_dec_caches(
+                params, sds((B, T, cfg.d_model), bf16), cfg, B, T)
+        else:
+            caches = tf_mod.init_lm_caches(cfg, B, T, torch.device("cpu"))
+    return {"token": token, "caches": caches, "position": position}
+
+
+def param_specs(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16):
+    """(values, axes): stand-ins of ``init(cfg, dtype=dtype)``'s tree and
+    the matching tree of logical-axes tuples (the reference's axes of
+    each leaf without the stacked ``"layers"`` axis)."""
+    with _fake_mode(), param_mod.recording_axes():
+        vals = init(cfg, 0, device="cpu", dtype=dtype)
+        axes = param_mod.axes_of(vals)
+    return vals, axes
+
+
+def count_params(cfg: ArchConfig) -> int:
+    vals, _ = param_specs(cfg)
+    return sum(t.numel() for t in param_mod.leaves(vals))

@@ -11,6 +11,10 @@ Dispatch is per group (group = batch row), as in the reference, whose
 buffers are folded into the grouped matmul's C axis, so each pass makes
 one K8 launch per matmul on (E, B*C, D).  Each row's math is unchanged;
 a row's slots are rows b*C .. b*C + C-1 of every expert.
+
+``shard_mode="smap"`` under an active mesh runs the shard_map MoE
+(``models.moe_shard_map``); without a mesh the dense path below runs,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -22,23 +26,30 @@ import torch.nn.functional as F
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.models.layers import ACTS, init_linear, linear, softmax
 from repro_torch.models.param import dense_init
+from repro_torch.parallel.sharding import active_mesh, shard_act
 
 
 def init_moe(gen, cfg, dtype):
     m = cfg.moe
     E, dff, d = m.n_routed, m.d_ff, cfg.d_model
     p = {
-        "router": init_linear(gen, d, E, dtype),
-        "w_up": dense_init(gen, (E, d, dff), dtype, fan_in=d),
-        "w_gate": dense_init(gen, (E, d, dff), dtype, fan_in=d),
-        "w_down": dense_init(gen, (E, dff, d), dtype, fan_in=dff),
+        "router": init_linear(gen, d, E, dtype, axes=("embed", None)),
+        "w_up": dense_init(gen, (E, d, dff), dtype, fan_in=d,
+                           axes=("expert", "embed", "mlp")),
+        "w_gate": dense_init(gen, (E, d, dff), dtype, fan_in=d,
+                             axes=("expert", "embed", "mlp")),
+        "w_down": dense_init(gen, (E, dff, d), dtype, fan_in=dff,
+                             axes=("expert", "mlp", "embed")),
     }
     if m.n_shared:
         # shared experts fused into one wide dense GLU
         p["shared"] = {
-            "up": init_linear(gen, d, m.n_shared * dff, dtype),
-            "gate": init_linear(gen, d, m.n_shared * dff, dtype),
-            "down": init_linear(gen, m.n_shared * dff, d, dtype),
+            "up": init_linear(gen, d, m.n_shared * dff, dtype,
+                              axes=("embed", "mlp")),
+            "gate": init_linear(gen, d, m.n_shared * dff, dtype,
+                                axes=("embed", "mlp")),
+            "down": init_linear(gen, m.n_shared * dff, d, dtype,
+                                axes=("mlp", "embed")),
         }
     return p
 
@@ -90,11 +101,16 @@ def _one_pass(x_sorted, weights, sorted_e, pos, C: int, E: int, cfg):
                       device=x_sorted.device)
     buf[e_idx, rows] = x_sorted
     buf = buf[:E]
+    if cfg.moe.shard_dispatch:
+        # keep the dispatch buffer expert-sharded end to end (§Perf)
+        buf = shard_act(buf, ("expert", None, None))
     # grouped matmul (dense path — the "dense rows"), K8 on the GPU
     h = gmm_ops.gmm_model(buf, weights["w_up"].to(buf.dtype))
     g = gmm_ops.gmm_model(buf, weights["w_gate"].to(buf.dtype))
     h = h * act(g)
     out = gmm_ops.gmm_model(h, weights["w_down"].to(buf.dtype))
+    if cfg.moe.shard_dispatch:
+        out = shard_act(out, ("expert", None, None))
     # the drop row E is no row of ``out``: gather row E-1 there, then zero
     gathered = out[e_idx.clamp(max=E - 1), rows]  # (B, Nk, d)
     return torch.where(keep[..., None], gathered, 0.0)
@@ -110,10 +126,9 @@ def _top_k(probs: torch.Tensor, k: int):
 def moe_ffn(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d). Returns (y, aux_loss)."""
     m = cfg.moe
-    if m.shard_mode == "smap":
-        raise NotImplementedError(
-            "moe_ffn: shard_mode='smap' (the shard_map MoE) comes with the "
-            "mesh slice, ROADMAP queue 1, item 11")
+    if m.shard_mode == "smap" and active_mesh() is not None:
+        from repro_torch.models.moe_shard_map import moe_ffn_shard_map
+        return moe_ffn_shard_map(params, x, cfg)
     B, T, d = x.shape
     E, k = m.n_routed, m.top_k
     logits = linear(params["router"], x).float()                # (B,T,E)
@@ -150,6 +165,7 @@ def moe_ffn(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         y_out = torch.gather(y_out, 1, inv[..., None].expand(-1, -1, d))
     y_flat = y_out.reshape(B, T, k, d)
     y = torch.sum(y_flat * gate_vals[..., None].to(y_flat.dtype), dim=2)
+    y = shard_act(y, ("batch", None, None))
     if "shared" in params:
         sp = params["shared"]
         h = linear(sp["up"], x) * ACTS[cfg.act](linear(sp["gate"], x))

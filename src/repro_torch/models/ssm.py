@@ -19,7 +19,9 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (ACTS, conv_step, copy_state,
                                        init_linear, linear, rowwise,
                                        softplus)
-from repro_torch.models.param import dense_init
+from repro_torch.models.param import (dense_init, note_axes, ones_init,
+                                      zeros_init)
+from repro_torch.parallel.sharding import shard_act
 
 _silu = ACTS["silu"]
 
@@ -35,18 +37,23 @@ def init_mamba(gen, cfg, dtype):
     d_inner, d_state, d_conv, dt_rank = _dims(cfg)
     dev = gen.device
     return {
-        "in_proj": init_linear(gen, cfg.d_model, 2 * d_inner, dtype),
-        "conv_w": dense_init(gen, (d_conv, d_inner), dtype, fan_in=d_conv),
-        "conv_b": torch.zeros((d_inner,), dtype=dtype, device=dev),
-        "x_proj": init_linear(gen, d_inner, dt_rank + 2 * d_state, dtype),
-        "dt_proj": init_linear(gen, dt_rank, d_inner, dtype, use_bias=True),
-        "out_proj": init_linear(gen, d_inner, cfg.d_model, dtype),
+        "in_proj": init_linear(gen, cfg.d_model, 2 * d_inner, dtype,
+                               axes=("embed", "inner")),
+        "conv_w": dense_init(gen, (d_conv, d_inner), dtype, fan_in=d_conv,
+                             axes=("conv", "inner")),
+        "conv_b": zeros_init((d_inner,), dev, dtype, axes=("inner",)),
+        "x_proj": init_linear(gen, d_inner, dt_rank + 2 * d_state, dtype,
+                              axes=("inner", None)),
+        "dt_proj": init_linear(gen, dt_rank, d_inner, dtype, use_bias=True,
+                               axes=(None, "inner")),
+        "out_proj": init_linear(gen, d_inner, cfg.d_model, dtype,
+                                axes=("inner", "embed")),
         # S4D-real initialisation of A (negative log-spaced), f32: the
         # reference casts it to f32 at use
-        "A_log": torch.log(torch.arange(
+        "A_log": note_axes(torch.log(torch.arange(
             1, d_state + 1, dtype=torch.float32, device=dev)).expand(
-                d_inner, d_state).contiguous(),
-        "D": torch.ones((d_inner,), dtype=dtype, device=dev),
+                d_inner, d_state).contiguous(), ("inner", "state")),
+        "D": ones_init((d_inner,), dev, dtype, axes=("inner",)),
     }
 
 
@@ -84,6 +91,7 @@ def mamba(params, x, cfg, *, make_cache: bool = False):
     xz = linear(params["in_proj"], x)
     pre, z = xz.chunk(2, dim=-1)
     u = _silu(_conv_full(params, pre, cfg))
+    u = shard_act(u, ("batch", None, "inner"))
 
     dt, Bm, Cm = _ssm_params(params, u, cfg)
     A = -torch.exp(params["A_log"].float())                 # (d_inner, d_state)

@@ -7,6 +7,7 @@ from repro_torch.models import blocks
 from repro_torch.models.layers import (embed, init_embedding, init_norm,
                                        init_unembed, norm, rope_table,
                                        unembed)
+from repro_torch.parallel.sharding import shard_act
 
 
 def _rope_dim(cfg) -> int:
@@ -43,6 +44,7 @@ def lm_forward(params, inputs, cfg, *, make_cache_len: int = 0):
 
     Returns (logits, caches, aux_loss); activations are bf16."""
     x = _inputs_to_h(params, inputs, cfg).to(torch.bfloat16)
+    x = shard_act(x, ("batch", None, "embed"))
     sin = cos = None
     if _has_attn(cfg):
         T = x.shape[1]
@@ -54,6 +56,7 @@ def lm_forward(params, inputs, cfg, *, make_cache_len: int = 0):
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params.get("unembed"), x, cfg,
                      embed_params=params["embed"])
+    logits = shard_act(logits, ("batch", None, "vocab"))
     return logits, caches, aux
 
 

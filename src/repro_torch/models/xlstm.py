@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (ACTS, _mean_last, conv_step,
                                        copy_state, init_linear, linear,
                                        log_sigmoid, rowwise)
-from repro_torch.models.param import dense_init, ones_init
+from repro_torch.models.param import dense_init, ones_init, zeros_init
+from repro_torch.parallel.sharding import shard_act
 
 NEG = -1e30
 _silu = ACTS["silu"]
@@ -151,16 +152,24 @@ def init_mlstm_block(gen, cfg, dtype):
     conv_w = cfg.xlstm.conv_width
     d = cfg.d_model
     return {
-        "up": init_linear(gen, d, 2 * d_inner, dtype),
-        "conv_w": dense_init(gen, (conv_w, d_inner), dtype, fan_in=conv_w),
-        "conv_b": torch.zeros((d_inner,), dtype=dtype, device=gen.device),
-        "wq": init_linear(gen, d_inner, d_inner, dtype),
-        "wk": init_linear(gen, d_inner, d_inner, dtype),
-        "wv": init_linear(gen, d_inner, d_inner, dtype),
-        "wi": init_linear(gen, d, nh, dtype, use_bias=True),
-        "wf": init_linear(gen, d, nh, dtype, use_bias=True),
-        "gn_scale": ones_init((d_inner,), gen.device),
-        "down": init_linear(gen, d_inner, d, dtype),
+        "up": init_linear(gen, d, 2 * d_inner, dtype,
+                          axes=("embed", "inner")),
+        "conv_w": dense_init(gen, (conv_w, d_inner), dtype, fan_in=conv_w,
+                             axes=("conv", "inner")),
+        "conv_b": zeros_init((d_inner,), gen.device, dtype,
+                             axes=("inner",)),
+        "wq": init_linear(gen, d_inner, d_inner, dtype,
+                          axes=("inner", None)),
+        "wk": init_linear(gen, d_inner, d_inner, dtype,
+                          axes=("inner", None)),
+        "wv": init_linear(gen, d_inner, d_inner, dtype,
+                          axes=("inner", None)),
+        "wi": init_linear(gen, d, nh, dtype, use_bias=True,
+                          axes=("embed", None)),
+        "wf": init_linear(gen, d, nh, dtype, use_bias=True,
+                          axes=("embed", None)),
+        "gn_scale": ones_init((d_inner,), gen.device, axes=("inner",)),
+        "down": init_linear(gen, d_inner, d, dtype, axes=("inner", "embed")),
     }
 
 
@@ -199,6 +208,7 @@ def mlstm_block(params, x, cfg, *, make_cache: bool = False,
         xc = _silu(xc)
     else:
         xc = _silu(_causal_conv(xm, params["conv_w"], params["conv_b"]))
+        xc = shard_act(xc, ("batch", None, "inner"))
     q = linear(params["wq"], xc).reshape(B, T, nh, dh)
     k = linear(params["wk"], xc).reshape(B, T, nh, dh)
     v = linear(params["wv"], xm).reshape(B, T, nh, dh)
@@ -250,11 +260,13 @@ def init_slstm_block(gen, cfg, dtype):
     d = cfg.d_model
     return {
         # 4 gates (i, f, z, o), input part
-        "wx": init_linear(gen, d, 4 * d, dtype, use_bias=True),
+        "wx": init_linear(gen, d, 4 * d, dtype, use_bias=True,
+                          axes=("embed", "inner")),
         # recurrent part: block-diagonal per head, f32 (cast to f32 at use)
-        "r": dense_init(gen, (nh, dh, 4 * dh), torch.float32, fan_in=dh),
-        "gn_scale": ones_init((d,), gen.device),
-        "out": init_linear(gen, d, d, dtype),
+        "r": dense_init(gen, (nh, dh, 4 * dh), torch.float32, fan_in=dh,
+                        axes=(None, None, None)),
+        "gn_scale": ones_init((d,), gen.device, axes=("embed",)),
+        "out": init_linear(gen, d, d, dtype, axes=("embed", "embed2")),
     }
 
 

@@ -14,6 +14,7 @@ files.
 import importlib.util
 import json
 import os
+import tempfile
 
 import pytest
 
@@ -163,6 +164,24 @@ def test_fleet_cold_join_places_off_the_shared_store(tmp_path):
                                                device="cpu",
                                                root=str(tmp_path))
     assert b == 0
+
+
+def test_fleet_and_child_stores_are_removed_after_use(tmp_path,
+                                                    monkeypatch):
+    """The cold-join check's throwaway stores (under ``root``) and the
+    two-process check's (under the temporary directory) are removed
+    once their workers have exited: nothing new is left in either."""
+    tmp_root = tmp_path / "tmp"
+    tmp_root.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_root))
+    fleet_root = tmp_path / "fleet"
+    fleet_root.mkdir()
+    mix = [("hist", {"n": 1 << 12, "n_bins": 32})]
+    serving_bench.fleet_cold_join_check(mix, verbose=False, device="cpu",
+                                        root=str(fleet_root))
+    assert os.listdir(fleet_root) == []
+    serving_bench.two_process_check(verbose=False, device="cpu")
+    assert [n for n in os.listdir(tmp_root) if n.startswith("repro-")] == []
 
 
 def test_meta_names_the_framework_and_device():

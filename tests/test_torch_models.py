@@ -291,10 +291,17 @@ def test_moe_top_k_breaks_ties_to_the_lower_index():
 
 
 def test_moe_smap_raises():
+    """``shard_mode="smap"`` no longer raises: without a mesh it is the
+    dense MoE, bitwise, as in the reference (under a mesh it is the
+    shard_map MoE: ``tests/test_torch_moe_smap.py``)."""
     _, cfg = _kimi()
-    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, shard_mode="smap"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        moe.moe_ffn({}, torch.zeros((1, 2, cfg.d_model)), cfg)
+    smap = cfg.replace(moe=dataclasses.replace(cfg.moe, shard_mode="smap"))
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 6, cfg.d_model)).astype(np.float32))
+    y0, a0 = moe.moe_ffn(p, x, cfg)
+    y1, a1 = moe.moe_ffn(p, x, smap)
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
 
 
 # --------------------------------------------------------- whole slice

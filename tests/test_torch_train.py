@@ -215,11 +215,25 @@ def test_remat_policies_give_the_same_gradients(arch):
 @pytest.mark.parametrize("remat", ["dots_names", "full_names",
                                    "boundaries"])
 def test_named_remat_policies_raise(remat):
+    """The named policies no longer raise (they came with the mesh): on
+    the dense config without a mesh each gives ``remat="none"``'s loss
+    and gradients bitwise; ``dots_names`` keeps every product as
+    ``dots`` does (no named tensor here), the other two recompute.
+    ``tests/test_torch_moe_smap.py`` holds them under a mesh."""
     _, cfg = _cfgs(DENSE, remat=remat)
     params = model_zoo.init(cfg, 0, device="cpu", dtype=torch.float32)
     _, tb = _tokens(cfg, 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        value_and_grad(params, tb, cfg)
+    none = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
+                                                    remat="none"))
+    got = {}
+    for c in (none, cfg):
+        with _CountMM() as count:
+            loss, _, grads = value_and_grad(params, tb, c)
+        got[c.parallel.remat] = (loss, grads, count.n)
+    (l0, g0, n0), (l1, g1, n1) = got["none"], got[remat]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
+    assert n1 == n0 if remat == "dots_names" else n1 > n0
     with torch.no_grad():                 # no remat without autograd
         logits, _ = model_zoo.forward(cfg, params, tb)
     assert torch.isfinite(logits.float()).all()

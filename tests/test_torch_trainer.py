@@ -1,14 +1,20 @@
-"""The port's trainer, checkpointer and launchers (``repro_torch.train``,
-``checkpoint``, ``launch.train``, ``examples.train_lm``) against the
-reference, on the CPU (the simulated pair, ``device="cpu"``).
+"""The port's trainer and checkpointer (``repro_torch.train``,
+``checkpoint``) against the reference, on the CPU (the simulated pair,
+``device="cpu"``).
 
-The reference's ``tests/test_trainer_ft.py`` and ``test_system.py``'s
-two training tests ported, then parity:
+The reference's ``tests/test_trainer_ft.py`` ported (its longer trainer
+runs in ``test_torch_trainer_ft.py`` and ``test_torch_trainer_run.py``,
+the launchers in ``test_torch_trainer_launch.py`` and
+``test_torch_trainer_example.py``, one file each so that the test
+workers spread them), then parity:
 
 * the trainer against the reference's in
   ``tests/test_torch_trainer_parity.py``;
-* checkpoints cross over both ways, with equal manifests; a bf16 leaf
-  round-trips bit for bit;
+* checkpoints of the same tree with f32 / int leaves cross over both
+  ways, with equal manifests; a bf16 leaf round-trips bit for bit in
+  the port; the two boundaries: a reference checkpoint of (stacked)
+  parameters does not restore into the port's per-layer tree, and the
+  reference reads a port bf16 leaf as its ``uint16`` bits;
 * ``HybridExecutor(time_model=)``'s virtual split and makespan equal the
   reference's;
 * the reference's optimizer state continues in the port
@@ -24,6 +30,7 @@ import pytest
 import torch
 
 from repro.checkpoint.checkpointer import Checkpointer as JaxCheckpointer
+from repro.configs import registry as jax_registry
 from repro.configs.base import ArchConfig as JaxArchConfig
 from repro.configs.base import ParallelConfig as JaxParallelConfig
 from repro.core.hybrid_executor import HybridExecutor as JaxExecutor
@@ -31,77 +38,27 @@ from repro.models import model_zoo as jax_zoo
 from repro.models import param as jax_param
 from repro.optim import optimizer as jax_opt
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import ArchConfig, ParallelConfig
+from repro_torch.configs import registry
 from repro_torch.core.hybrid_executor import HybridExecutor, detect_platform
 from repro_torch.core.tree import leaves
 from repro_torch.data.pipeline import DataConfig
-from repro_torch.examples import train_lm
-from repro_torch.ft.failure import FailureInjector, HeartbeatMonitor
+from repro_torch.ft.failure import HeartbeatMonitor
 from repro_torch.launch import train as train_launch
+from repro_torch.models import model_zoo
 from repro_torch.models.from_jax import (opt_state_from_numpy,
                                          params_from_numpy)
 from repro_torch.optim.optimizer import OptConfig, apply_updates
-from repro_torch.serve.serve_step import generate
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from torch_trainer_common import _CFG, CFG, make_trainer
 
-_CFG = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
-            n_kv_heads=2, d_ff=128, vocab_size=256, head_dim=16)
-CFG = ArchConfig(**_CFG, parallel=ParallelConfig(remat="none"))
 JCFG = JaxArchConfig(**_CFG, parallel=JaxParallelConfig(remat="none"))
-SYS = ArchConfig(**{**_CFG, "name": "sys", "vocab_size": 512},
-                 parallel=ParallelConfig(remat="none"))
-
-
-def TM(g, k):                                   # 4:1
-    return k * (0.001 if g == "accel" else 0.004)
-
-
-def _trainer(tmp, steps=6, accum=8, injector=None):
-    return Trainer(
-        CFG, OptConfig(lr=1e-3, warmup_steps=2, total_steps=50),
-        DataConfig(vocab_size=256, seq_len=32, micro_batch=2),
-        TrainerConfig(accum_units=accum, steps=steps, ckpt_dir=tmp,
-                      ckpt_every=2, time_model=TM),
-        injector=injector, device="cpu")
 
 
 # ------------------------------------------- the reference's unit tests
 def test_shares_converge_to_throughput_ratio(tmp_path):
-    out = _trainer(str(tmp_path), steps=5).run()
+    out = make_trainer(str(tmp_path), steps=5).run()
     # 4:1 ratio, 8 units -> [6, 2] after calibration settles
     assert out["history"][-1].units == [6, 2]
-
-
-def test_failure_kill_and_elastic_revive(tmp_path):
-    inj = FailureInjector(kill={2: "host"}, revive={4: "host"})
-    out = _trainer(str(tmp_path), steps=6, injector=inj).run()
-    h = {r.step: r for r in out["history"]}
-    assert h[2].units == [8, 0]          # dead group gets nothing
-    assert h[3].units == [8, 0]
-    assert h[4].units[1] > 0             # rejoined after revive
-    assert all(np.isfinite(r.loss) for r in out["history"])
-    assert all(np.isfinite(r.grad_norm) and r.wall_s > 0
-               for r in out["history"])
-
-
-def test_checkpoint_restart_resumes(tmp_path):
-    _trainer(str(tmp_path), steps=4).run()
-    out = _trainer(str(tmp_path), steps=7).run()
-    assert out["history"][0].step == 4   # resumed, not restarted
-
-
-def test_run_continues_in_process_as_one_run():
-    """``run(state, start_step, warmup=False)`` after a 3-step run is
-    the same training as one 5-step run: the same plans and losses."""
-    whole = _trainer(None, steps=5).run()["history"]
-    tr = _trainer(None, steps=3)
-    out = tr.run()
-    tr.tcfg.steps = 5
-    more = tr.run({"params": out["params"], "opt": out["opt"]},
-                  start_step=3, warmup=False)["history"]
-    assert [r.step for r in more] == list(range(5))
-    assert [(r.units, r.loss) for r in more] == [(r.units, r.loss)
-                                                  for r in whole]
 
 
 def test_checkpoint_atomic_and_gc(tmp_path):
@@ -136,37 +93,6 @@ def test_heartbeat_monitor():
     assert mon.check() == {"b"}
     mon.beat("b")
     assert mon.check() == set()
-
-
-def test_train_then_serve_roundtrip(tmp_path):
-    """Train briefly, then generate with the trained (f32) weights."""
-    tr = Trainer(SYS, OptConfig(lr=1e-3, warmup_steps=2, total_steps=50),
-                 DataConfig(vocab_size=512, seq_len=32, micro_batch=2),
-                 TrainerConfig(accum_units=4, steps=4,
-                               ckpt_dir=str(tmp_path),
-                               time_model=lambda g, k: k),
-                 device="cpu")
-    out = tr.run()
-    assert np.isfinite(out["history"][-1].loss)
-    assert all(p.dtype == torch.float32 for p in leaves(out["params"]))
-    toks = generate(SYS, out["params"], torch.ones((2, 8),
-                                                   dtype=torch.int64),
-                    4, cache_len=16)
-    assert toks.shape[0] == 2
-    assert bool((toks >= 0).all()) and bool((toks < SYS.vocab_size).all())
-
-
-def test_training_reduces_loss_on_learnable_data():
-    """Tokens drawn from a zipf distribution are learnable: unigram CE
-    should drop measurably within a few steps."""
-    tr = Trainer(SYS, OptConfig(lr=3e-3, warmup_steps=2, total_steps=100),
-                 DataConfig(vocab_size=512, seq_len=32, micro_batch=4,
-                            kind="zipf"),
-                 TrainerConfig(accum_units=4, steps=12,
-                               time_model=lambda g, k: k),
-                 device="cpu")
-    losses = [r.loss for r in tr.run()["history"]]
-    assert losses[-1] < losses[0] - 0.3, losses
 
 
 def test_trainer_without_a_gpu_raises_unless_asked_for_the_cpu():
@@ -243,6 +169,37 @@ def test_bf16_leaf_round_trips_bit_for_bit(tmp_path):
     assert torch.equal(back["v"], x) and int(back["count"]) == 2
 
 
+def test_reference_params_checkpoint_does_not_restore_in_the_port(tmp_path):
+    """The boundary of the cross-over: the reference stacks its layer
+    groups, so its checkpoint of h2o-danube-1.8b ``reduced()``
+    parameters has no per-group leaf the port's tree asks for."""
+    jcfg = jax_registry.get("h2o-danube-1.8b").reduced()
+    jp = jax_param.values(jax_zoo.init(jcfg, jax.random.key(0)))
+    JaxCheckpointer(str(tmp_path), async_save=False).save(0, {"params": jp})
+    cfg = registry.get("h2o-danube-1.8b").reduced()
+    like = {"params": model_zoo.init(cfg, 0, device="cpu",
+                                     dtype=torch.float32)}
+    with pytest.raises(KeyError, match=r"checkpoint missing leaf "
+                       r"params/stack/groups/\[0\]/l0/ffn/down/w"):
+        Checkpointer(str(tmp_path)).restore(like)
+
+
+def test_port_bf16_leaf_reads_as_uint16_bits_in_the_reference(tmp_path):
+    """The other boundary: the reference reads no manifest type, so a
+    bf16 leaf the port saved comes back there as its ``uint16`` bits,
+    with no error."""
+    x = torch.tensor([0.1426, -2.5, 1.0]).bfloat16()
+    Checkpointer(str(tmp_path), async_save=False).save(0, {"m": x})
+    assert _manifest(str(tmp_path), 0)["leaves"]["m"]["dtype"] == "bfloat16"
+    back, _ = JaxCheckpointer(str(tmp_path)).restore(
+        {"m": jnp.zeros(3, jnp.bfloat16)})
+    arr = np.asarray(back["m"])
+    assert arr.dtype == np.uint16
+    assert arr.tolist() == x.view(torch.int16).numpy().view(
+        np.uint16).tolist()
+    assert arr[0] == 15890                # 0.1426 in bf16, as an integer
+
+
 def test_executor_time_model_matches_reference():
     data = np.arange(64, dtype=np.float32)
 
@@ -306,22 +263,3 @@ def test_reference_optimizer_state_continues_in_the_port(kind):
         # the port decays no per-layer vector, the reference's stacked
         # norm scales are matrices (ROADMAP, kept differences)
         assert float((a - b).abs().max()) <= 2 * okw["lr"] * 0.1 + 1e-6
-
-
-# ----------------------------------------------------------- launchers
-def test_launch_train_runs_on_the_cpu(tmp_path):
-    trainer, out = train_launch.main(
-        ["--arch", "xlstm-350m", "--steps", "2", "--ckpt", str(tmp_path)],
-        device="cpu")
-    assert len(out["history"]) == 2 and trainer.device.type == "cpu"
-    assert all(np.isfinite(r.loss) for r in out["history"])
-    with pytest.raises(SystemExit):
-        train_launch.main(["--arch", "whisper-tiny", "--steps", "1"],
-                          device="cpu")
-
-
-def test_example_train_lm_runs_on_the_cpu(tmp_path):
-    out = train_lm.main(["--steps", "3", "--ckpt", str(tmp_path),
-                         "--inject-failure"], device="cpu")
-    h = out["history"]
-    assert len(h) == 3 and h[1].units == [8, 0] and h[2].units[1] > 0
