@@ -90,6 +90,18 @@
    on two devices); (d) the listrank, lbm and dither steppers on the
    real pair, each value bitwise its solo ``run_one`` on the decode
    lane's device; (e) ``launch/serve.py --stream --continuous``.
+   Then, on the same weights, the ``lm tuned`` phase: ``generate`` at
+   4 x 1024 + 16 against a default run (tp = 1, no pin, no hit): (a)
+   at tp = 16 (kv_repeat 2: the caches' bytes twice tp = 1's, K7 on its
+   tensor-core entry over 16 K/V heads a row, the prefill's logits
+   against tp = 1's); (b) ``REPRO_TUNE_PIN_FLASH_ATTENTION`` on the
+   blocked attention, then ``REPRO_TUNE_PIN_GMM`` on the einsum: the
+   pinned kernel launches 0 times, the other as in the default run;
+   (c) a tune-cache hit (``REPRO_AUTOTUNE=1``, a throwaway tune file,
+   a timer that fails if called): K7's prefill bucket on its CUDA-core
+   entry, K8's decode up/gate bucket on the einsum, with the launches
+   that moves; each run's tokens against the default run's under the
+   margin rule; (d) K7's row at the tp = 16 prefill shape.
    Also K7's f32 entry at the serve stream's attention shape (4 x 1024,
    64/8 heads, d = 112, causal) against its plain version and SDPA in
    f32, its launches per serve-stream run.
@@ -3222,6 +3234,212 @@ def serve_continuous_phase(torch, np, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# lm tuned phase: tp= (the repeated K/V heads) and the model layers'
+# tune-cache lookup, on the LM phase's kimi-k2 weights
+# ---------------------------------------------------------------------------
+LM_TP = 16
+# the CUDA-core bf16 entries a tune-cache hit may name
+K7_FMA_BF16, K8_FMA_BF16 = "flash_attention_fma_bf16", "gmm_fma_bf16"
+
+
+def _lm_run(torch, common, label, fn):
+    """``fn()``'s tokens and its launch counts (total and by C entry),
+    the counts set to 0 just before it and read just after it."""
+    common.reset_launches()
+    t0 = time.perf_counter()
+    toks = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, entries = common.launch_counts(), common.entry_counts()
+    print(f"{label}: wall_s={wall!r} launches={counts} by entry " + ", ".join(
+        f"{e}={entries[e]}" for pair in LM_ENTRY.values() for e in pair),
+        flush=True)
+    return toks, counts, entries
+
+
+def _margin(label, toks, plain, gaps):
+    """The margin rule against the default run (``plain_check``)."""
+    from repro_torch.serve.plain_check import MARGIN, check_tokens
+    try:
+        differed = check_tokens(toks, plain, gaps)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+    print(f"{label}: {toks.shape[0] - len(differed)} of {toks.shape[0]} "
+          f"rows equal to the default run's tokens; the others differ "
+          f"first where its top-1/top-2 gap < {MARGIN}: {differed}",
+          flush=True)
+
+
+def lm_tuned_phase(torch, dev, cfg, params, flush):
+    """kimi-k2 (full width, depth 2; the LM phase's weights) through
+    ``generate`` at 4 x 1024 + 16 with the search off, against the
+    default run (tp = 1, no pin, no hit: its tokens, top-1/top-2 gaps and
+    launches): (a) at tp = 16 (kv_repeat 2: the caches' bytes twice
+    tp = 1's, K7 on its tensor-core entry over 16 K/V heads a row); (b)
+    K7 pinned to the blocked attention, then K8 to the einsum: the
+    pinned kernel launches 0 times, the other as in the default run;
+    (c) a tune-cache hit with the search on and a timer that fails if
+    called: K7's prefill bucket on its CUDA-core entry, K8's decode
+    up/gate bucket on the einsum; (d) K7's row at the tp = 16 prefill
+    shape.  The tokens of (a)-(c) against the default run's under the
+    margin rule.  Returns the launch counts of (a)-(c)'s ``generate``
+    calls, summed, and (d)'s row."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.models import model_zoo
+    from repro_torch.models.attention import kv_repeat_for
+    from repro_torch.serve.plain_check import greedy_with_gaps
+    from repro_torch.serve.serve_step import generate
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(1)   # the LM phase's
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    B, H, Kv, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    L = LM_PROMPT + LM_NEW
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.n_dense_layers
+    passes = 1 + m.overflow_passes
+    k7, k8 = cfg.n_layers, 3 * passes * n_moe * (1 + LM_NEW)
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    # the default run: tokens, gaps and the prefill's last logits
+    plain, gaps, last1 = greedy_with_gaps(cfg, params, prompt, LM_NEW)
+    _, base, base_entries = _lm_run(torch, common, "lm tuned default",
+                                    lambda: generate(cfg, params, prompt,
+                                                     LM_NEW))
+    if base["flash_attention"] != k7 or base["gmm"] != k8:
+        raise AssertionError(f"lm tuned default: launches {base}, "
+                             f"predicted K7 {k7}, K8 {k8}")
+
+    # (a) tp = 16
+    rep = kv_repeat_for(cfg, LM_TP)
+    c1 = model_zoo.init_caches(cfg, B, L, device=dev)
+    c16 = model_zoo.init_caches(cfg, B, L, tp=LM_TP, device=dev)
+    nbytes = [sum(t.numel() * t.element_size() for t in leaves(c))
+              for c in (c1, c16)]
+    del c1, c16
+    print(f"lm tuned tp={LM_TP}: kv_repeat={rep} K/V heads "
+          f"{Kv} -> {Kv * rep} cache_bytes tp=1 {nbytes[0]} tp={LM_TP} "
+          f"{nbytes[1]}", flush=True)
+    if rep != 2 or nbytes[1] != 2 * nbytes[0]:
+        raise AssertionError(f"lm tuned tp={LM_TP}: kv_repeat {rep}, "
+                             f"cache bytes {nbytes}")
+    kv_rows, real = [], flash_ops.flash_attention_cuda
+
+    def k7_spy(q, k, v, causal, entry=None):
+        kv_rows.append(k.shape[0])
+        return real(q, k, v, causal, entry=entry)
+    flash_ops.flash_attention_cuda = k7_spy
+    try:
+        toks, counts, entries = _lm_run(
+            torch, common, f"lm tuned tp={LM_TP} generate",
+            lambda: generate(cfg, params, prompt, LM_NEW, tp=LM_TP))
+    finally:
+        flash_ops.flash_attention_cuda = real
+    add(counts)
+    wgmma = LM_ENTRY["flash_attention"][0]
+    if counts != base or entries[wgmma] != k7 or \
+            kv_rows != [B * Kv * rep] * k7:
+        raise AssertionError(
+            f"lm tuned tp={LM_TP}: launches {counts} (default {base}), "
+            f"{entries[wgmma]} through {wgmma}, K/V rows a launch "
+            f"{kv_rows} (want {B * Kv * rep} each)")
+    _margin(f"lm tuned tp={LM_TP}", toks, plain, gaps)
+    _, _, last16 = greedy_with_gaps(cfg, params, prompt, 0, tp=LM_TP)
+    print(f"lm tuned tp={LM_TP}: K7 {k7} launches on {wgmma}, "
+          f"{kv_rows[0] // B} K/V heads a row; prefill's last logits "
+          f"max |diff| against tp=1 {(last16 - last1).abs().max().item()!r}"
+          f" bitwise={bool(torch.equal(last16, last1))}", flush=True)
+
+    # (b) a pin on each kernel
+    for kernel, pin in (("flash_attention",
+                         '{"impl": "torch_blocked", "block_q": 256}'),
+                        ("gmm", '{"impl": "torch_einsum"}')):
+        var = "REPRO_TUNE_PIN_" + kernel.upper()
+        os.environ[var] = pin
+        try:
+            toks, counts, _ = _lm_run(
+                torch, common, f"lm tuned pin {kernel}",
+                lambda: generate(cfg, params, prompt, LM_NEW))
+        finally:
+            del os.environ[var]
+        add(counts)
+        other = "gmm" if kernel == "flash_attention" else "flash_attention"
+        if counts[kernel] != 0 or counts[other] != base[other]:
+            raise AssertionError(f"lm tuned pin {kernel}: launches "
+                                 f"{counts}, default {base}")
+        _margin(f"lm tuned pin {kernel}", toks, plain, gaps)
+
+    # (c) a tune-cache hit with the search on; nothing may be timed
+    root = os.path.join(common.BUILD_DIR, "autotune")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "lm_tuned.json")
+    k7_bucket = flash_ops.shape_bucket(B * H, LM_PROMPT, LM_PROMPT, d, True)
+    # a decode step's MoE buffers: (E, B * C, D) at C = 1 in both passes
+    k8_bucket = gmm_ops.shape_bucket(m.n_routed, B, cfg.d_model, m.d_ff)
+    with open(path, "w") as f:
+        json.dump({"torch:cuda": {
+            "flash_attention": {k7_bucket: {
+                "config": {"impl": "cuda", "entry": K7_FMA_BF16},
+                "us": 1.0}},
+            "gmm": {k8_bucket: {"config": {"impl": "torch_einsum"},
+                                "us": 1.0}}}}, f)
+    saved = {v: os.environ.get(v) for v in ("REPRO_AUTOTUNE",
+                                            "REPRO_TUNE_CACHE")}
+
+    def no_search(fn):
+        raise AssertionError("lm tuned hit: the model path timed a "
+                             "candidate")
+    os.environ["REPRO_AUTOTUNE"], os.environ["REPRO_TUNE_CACHE"] = "1", path
+    at.reset_tune_cache()
+    prev = at.set_timer(no_search)
+    try:
+        toks, counts, entries = _lm_run(
+            torch, common, "lm tuned hit",
+            lambda: generate(cfg, params, prompt, LM_NEW))
+    finally:
+        at.set_timer(prev)
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+        at.reset_tune_cache()
+        os.remove(path)
+    add(counts)
+    # 4 of a step's 6 K8 launches (up and gate, both passes) are the hit's
+    want_k8 = k8 - 4 * n_moe * LM_NEW
+    print(f"lm tuned hit: buckets {k7_bucket} -> {K7_FMA_BF16}, "
+          f"{k8_bucket} -> torch_einsum; K7 {entries[K7_FMA_BF16]} on "
+          f"{K7_FMA_BF16}, K8 {counts['gmm']} (predicted {want_k8})",
+          flush=True)
+    if entries[K7_FMA_BF16] != k7 or entries[wgmma] or \
+            counts["gmm"] != want_k8 or \
+            entries[LM_ENTRY["gmm"][0]] != want_k8:
+        raise AssertionError(f"lm tuned hit: launches {counts} {entries}")
+    _margin("lm tuned hit", toks, plain, gaps)
+    del toks, plain, gaps, last1, last16
+
+    # (d) K7 at the tp = 16 prefill shape
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((B * n, LM_PROMPT, d), generator=g, device=dev)
+               .to(torch.bfloat16) for n in (H, Kv * rep, Kv * rep))
+    row = _k7_row(torch, flush, f"tp={LM_TP} prefill", q, k, v, True)
+    row["path"] = "lm tuned"
+    print(f"lm tuned: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total, row
+
+
+# ---------------------------------------------------------------------------
 # model-families phase: MLA (deepseek-v2-lite-16b, minicpm3-4b) and the
 # encoder-decoder (whisper-tiny)
 # ---------------------------------------------------------------------------
@@ -5194,7 +5412,13 @@ def main() -> None:
     # the card
     per_call["serve continuous"] = serve_continuous_phase(
         torch, np, lm_cfg, lm_params)
-    del lm_params
+    # tp = 16 (the repeated K/V heads) and the model layers' pins and
+    # tune-cache hits, the LM phase's weights still on the card
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    per_call["lm tuned"], tuned_row = lm_tuned_phase(torch, dev, lm_cfg,
+                                                     lm_params, flush)
+    rows.append(tuned_row)
+    del lm_params, flush
     gc.collect()            # the weights' last holders may sit in cycles
     # the model families: MLA (deepseek on K8, minicpm3 through the
     # engine) and the encoder-decoder (whisper on K7's full route)

@@ -393,6 +393,27 @@ def autotune(kernel: str, shape_bucket: str, candidates: Sequence[Config],
     return best_cfg
 
 
+def cached_or_default(kernel: str, shape_bucket: str, default: Config,
+                      device=None) -> Config:
+    """Zero-search config resolution: pin > search disabled (the
+    default) > cache hit under ``device``'s backend key > default.
+
+    Never times anything: the model layers (``models.attention``,
+    ``models.moe``) resolve their configs this way on every call; the
+    tune file is filled by the kernels' own entries, which search."""
+    default = dict(default)
+    pin = pinned_config(kernel)
+    if pin is not None:
+        return {**default, **pin}
+    if not search_enabled():
+        return default
+    hit = get_tune_cache().get(backend_key(device or "cpu"), kernel,
+                               shape_bucket)
+    if hit is not None and isinstance(hit.get("config"), dict):
+        return {**default, **hit["config"]}
+    return default
+
+
 def tuned_entry(kernel: str, shape_bucket: str, device=None
                 ) -> Optional[dict]:
     """Cache entry (config + measured us) if present — benchmark

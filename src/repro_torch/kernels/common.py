@@ -304,6 +304,14 @@ def entry_counts() -> Dict[str, int]:
         return dict(ENTRY_LAUNCHES)
 
 
+def differentiated(*tensors) -> bool:
+    """Autograd records an op on these tensors: grad mode is on and one
+    of them requires grad.  K7 and K8 define no backward, so a call that
+    autograd records takes a differentiable formulation."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors)
+
+
 def check_cuda(name: str, *tensors: torch.Tensor,
                dtypes=None) -> torch.device:
     """Validate kernel inputs before their pointers leave Python: all

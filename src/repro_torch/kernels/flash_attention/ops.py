@@ -4,15 +4,17 @@
 resolves the best implementation for the inputs' device and shape
 bucket via ``kernels/autotune.py``, ``config=`` pins one and
 ``use_kernel=False`` runs the oracle on any device.  ``sdpa`` is what
-model layers call for plain causal (or unmasked) attention: it reads no
-tune cache and runs the device's default, so on a CUDA tensor every
-layer launches K7 on its route (the reference's model path routes
-through its kernel only on a tune-cache hit or pin and then maps the
-kernel onto an XLA formulation, which has a VJP).  A layer that autograd
-records never calls it: it takes the grouped einsum
-``models.attention._sdpa``, the reference's differentiable route.
-Both take q (B, T, H, d) and k/v (B, S, Kv, d), H % Kv == 0, and return
-(B, T, H, d).
+model layers call for plain causal (or unmasked) attention, with the
+config ``model_config`` resolved for the call (a pin or a tune-cache
+hit, never a search) or, with none, the device's default: K7 on its
+route on a CUDA tensor.  A ``cuda`` pin or hit stays K7 on a CUDA
+tensor that autograd does not record; on a CPU tensor, or where
+autograd records, it becomes the nearest differentiable formulation
+(``_differentiable``: the reference maps its kernel so in every model
+layer).  With no pin and no hit a layer that autograd records never
+calls ``sdpa``: it takes the grouped einsum ``models.attention._sdpa``,
+the reference's differentiable route.  All take q (B, T, H, d) and k/v
+(B, S, Kv, d), H % Kv == 0, and return (B, T, H, d).
 
 The config space:
 
@@ -28,7 +30,9 @@ The config space:
   non-causal shapes only, as in the reference.
 
 With the search off a CUDA tensor runs ``DEFAULT_CONFIG`` (the route's
-kernel) and a CPU tensor ``CPU_CONFIG`` (the unblocked softmax).
+kernel) and a CPU tensor ``CPU_CONFIG`` (the unblocked softmax).  A
+config naming another impl (the reference's ``pallas``, ``xla_ref``,
+``xla_blocked`` among them) raises a ``ValueError`` that names it.
 """
 from __future__ import annotations
 
@@ -36,9 +40,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.cost_model import CostTerms
+from repro_torch.core.cost_model import CostTerms, backend_key
 from repro_torch.kernels.autotune import (Config, autotune, bucket,
-                                          default_config)
+                                          default_config, get_tune_cache,
+                                          pinned_config, search_enabled)
+from repro_torch.kernels.common import differentiated
 from repro_torch.kernels.flash_attention.flash_attention import (
     WGMMA_ENTRY, attention_blocked_torch, entries, flash_attention_cuda,
     route)
@@ -171,12 +177,53 @@ def tuned_config(q, k, v, *, causal: bool = True) -> Config:
         device=dev)
 
 
+def _differentiable(cfg: Config, causal: bool) -> Config:
+    """K7 defines no backward (nor does the reference's kernel): a model
+    layer that autograd records, or that runs on a CPU tensor, maps a
+    ``cuda`` config onto the nearest differentiable formulation, the
+    blocked attention if causal (it keeps the prefix skip), else the
+    unblocked softmax.  The reference's ``pallas`` -> ``xla_blocked`` /
+    ``xla_ref``."""
+    if cfg.get("impl") == "cuda":
+        return {**cfg, "impl": "torch_blocked" if causal else "torch_ref"}
+    return cfg
+
+
+def model_config(q, k, v, *, causal: bool = True) -> Optional[Config]:
+    """The config a model layer runs for (B, T, H, d) q and (B, S, Kv,
+    d) k/v when a pin or a tune-cache hit (under q's backend key) exists
+    for this shape bucket, else None: a pure lookup, nothing is timed.
+    A ``cuda`` config stays K7 only on a CUDA tensor that autograd does
+    not record (``_differentiable`` elsewhere).  Pass the result to
+    ``sdpa(config=...)``, which raises a ``ValueError`` naming an impl
+    the port lacks."""
+    dev = q.device
+    default = default_config(DEFAULT_CONFIG, CPU_CONFIG, dev)
+    pin = pinned_config("flash_attention")
+    if pin is not None:
+        cfg = {**default, **pin}
+    elif not search_enabled():
+        return None
+    else:
+        B, T, H, d = q.shape
+        hit = get_tune_cache().get(
+            backend_key(dev), "flash_attention",
+            shape_bucket(B * H, T, k.shape[1], d, causal))
+        if hit is None or not isinstance(hit.get("config"), dict):
+            return None
+        cfg = {**default, **hit["config"]}
+    if dev.type != "cuda" or differentiated(q, k, v):
+        cfg = _differentiable(cfg, causal)
+    return cfg
+
+
 def sdpa(q, k, v, *, causal: bool = True,
          config: Optional[Config] = None) -> torch.Tensor:
     """Model-layer attention, plain causal (or no) masking only —
     sliding windows, softcaps and decode caches stay on the layers'
-    einsum path.  ``config=None`` is the device's default (no tune
-    cache is read): K7 on its route on a GPU."""
+    einsum path.  ``config`` comes from ``model_config``; ``None`` is
+    the device's default (no tune cache is read): K7 on its route on a
+    GPU."""
     if config is None:
         config = default_config(DEFAULT_CONFIG, CPU_CONFIG, q.device)
     return flash_attention(q, k, v, causal=causal, config=config)

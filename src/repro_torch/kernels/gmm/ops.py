@@ -2,11 +2,13 @@
 
 ``gmm(x, w)`` resolves the best implementation for the operands' device
 and shape bucket via ``kernels/autotune.py``; pass ``config=`` to pin
-one.  ``gmm_model`` is what MoE layers call: it reads no tune cache and
-runs the device's default, so on a CUDA tensor every MoE matmul
-launches K8 on its route, unless autograd records the call: then it
-runs ``torch_einsum``, as the reference's model path maps its kernel
-onto ``xla_einsum``, which has a VJP.
+one.  ``gmm_model`` is what MoE layers call: it resolves its config
+with ``autotune.cached_or_default`` (a pin, else a tune-cache hit when
+the search is on, else the device's default; nothing is timed).  A
+``cuda`` config launches K8 on a CUDA tensor that autograd does not
+record and runs ``torch_einsum`` otherwise, as the reference's model
+path maps its kernel onto ``xla_einsum``, which has a VJP; with no pin
+and no hit a call that autograd records runs ``torch_einsum`` too.
 
 The config space:
 
@@ -32,7 +34,8 @@ import torch
 
 from repro_torch.core.cost_model import CostTerms
 from repro_torch.kernels.autotune import (Config, autotune, bucket,
-                                          default_config)
+                                          cached_or_default, default_config)
+from repro_torch.kernels.common import differentiated
 from repro_torch.kernels.gmm.gmm import (WGMMA_ENTRY, entries, gmm_cuda,
                                          gmm_torch, route)
 from repro_torch.kernels.gmm.ref import gmm_ref
@@ -105,14 +108,21 @@ def tuned_config(x: torch.Tensor, w: torch.Tensor) -> Config:
 
 def gmm_model(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Model-layer grouped matmul: x (E, C, D), w (E, D, F) -> (E, C, F),
-    on the device's default (no tune cache is read).  A call that
-    autograd records takes ``torch_einsum``, the reference's
-    differentiable formulation: K8, like the reference's kernel,
-    defines no backward."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _gmm_cfg(x, w, {"impl": "torch_einsum"})
-    return _gmm_cfg(x, w, default_config(DEFAULT_CONFIG, CPU_CONFIG,
-                                         x.device))
+    through the pin or the tune-cache hit of its shape bucket, else the
+    device's default.  K8, like the reference's kernel, defines no
+    backward: a call that autograd records runs ``torch_einsum``, the
+    reference's differentiable formulation, where the config names the
+    kernel (or, with no pin and no hit, always), and so does a ``cuda``
+    config on a CPU tensor."""
+    E, C, D = x.shape
+    recorded = differentiated(x, w)
+    default = ({"impl": "torch_einsum"} if recorded else
+               default_config(DEFAULT_CONFIG, CPU_CONFIG, x.device))
+    cfg = cached_or_default("gmm", shape_bucket(E, C, D, w.shape[2]),
+                            default, device=x.device)
+    if cfg.get("impl") == "cuda" and (recorded or x.device.type != "cuda"):
+        cfg = {**cfg, "impl": "torch_einsum"}
+    return _gmm_cfg(x, w, cfg)
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, *,

@@ -16,6 +16,11 @@ recurrent layers run their batched products (and the mLSTM gates'
 projections) row by row (``per_row``), so each row computes the bits of
 its solo step.
 
+``kv_repeat`` (``attention.kv_repeat_for``: the KV heads repeated so that
+they divide a model axis of size ``tp``) reaches every attention layer
+and its cache; MLA and the recurrent mixers take none, as in the
+reference.
+
 A training forward (autograd recording, no caches) wraps each group in
 the config's ``parallel.remat``: ``"dots"`` keeps the matmuls' outputs
 and recomputes the rest in the backward (the reference's
@@ -98,11 +103,13 @@ def init_layer(gen, cfg, kind: str, use_moe: bool, dtype):
     return p
 
 
-def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device):
+def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device,
+                     kv_repeat: int = 1):
     """Empty decode cache of one layer: bf16 (the activations' type)
     but for the recurrent states, which are f32 as in the reference."""
     if kind == "attn":
-        return attn_mod.init_cache(cfg, batch, max_len, device)
+        return attn_mod.init_cache(cfg, batch, max_len, device,
+                                   kv_repeat=kv_repeat)
     if kind == "mla":
         return mla_mod.init_mla_cache(cfg, batch, max_len, device)
     if kind == "mamba":
@@ -135,12 +142,13 @@ def _ffn(params, x, cfg, use_moe: bool, boundary: bool = False):
 
 
 def apply_layer(params, x, cfg, kind: str, use_moe: bool, *, sin, cos,
-                make_cache_len: int = 0):
+                kv_repeat: int = 1, make_cache_len: int = 0):
     """Full-sequence layer. Returns (x, cache, aux_loss)."""
     h = norm(params["norm1"], x, cfg)
     if kind == "attn":
         y, cache = attn_mod.attention(params["mix"], h, cfg, sin=sin,
-                                      cos=cos, make_cache_len=make_cache_len)
+                                      cos=cos, kv_repeat=kv_repeat,
+                                      make_cache_len=make_cache_len)
     elif kind == "mla":
         y, cache = mla_mod.mla_attention(params["mix"], h, cfg, sin=sin,
                                          cos=cos,
@@ -162,14 +170,15 @@ def apply_layer(params, x, cfg, kind: str, use_moe: bool, *, sin, cos,
 
 
 def apply_layer_decode(params, x, cfg, kind: str, use_moe: bool, cache,
-                       position, *, sin, cos):
+                       position, *, sin, cos, kv_repeat: int = 1):
     """Single-token layer step at an int or a (B,) tensor of per-row
     positions. Returns (x, cache, aux); the cache is updated in place."""
     h = norm(params["norm1"], x, cfg)
     per_row = not isinstance(position, int)
     if kind == "attn":
         y, cache = attn_mod.attention_decode(params["mix"], h, cfg, cache,
-                                             position, sin=sin, cos=cos)
+                                             position, sin=sin, cos=cos,
+                                             kv_repeat=kv_repeat)
     elif kind == "mla":
         y, cache = mla_mod.mla_decode(params["mix"], h, cfg, cache,
                                       position, sin=sin, cos=cos)
@@ -260,28 +269,31 @@ def init_stack(gen, cfg, dtype):
     return p
 
 
-def init_stack_caches(cfg, batch: int, max_len: int, device):
+def init_stack_caches(cfg, batch: int, max_len: int, device,
+                      kv_repeat: int = 1):
     """Empty decode caches (``init_layer_cache``'s types)."""
     kinds, _, n_groups = group_layout(cfg)
     out = {"groups": [{f"l{i}": init_layer_cache(cfg, kind, batch, max_len,
-                                                 device)
+                                                 device, kv_repeat)
                        for i, kind in enumerate(kinds)}
                       for _ in range(n_groups)]}
     if _n_prefix(cfg):
         out["prefix"] = [init_layer_cache(cfg, _attn_kind(cfg), batch,
-                                          max_len, device)
+                                          max_len, device, kv_repeat)
                          for _ in range(_n_prefix(cfg))]
     return out
 
 
-def apply_stack(params, x, cfg, *, sin, cos, make_cache_len: int = 0):
+def apply_stack(params, x, cfg, *, sin, cos, kv_repeat: int = 1,
+                make_cache_len: int = 0):
     """Returns (x, caches, aux)."""
     kinds, moe_flags, _ = group_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix_caches = []
     for lp in params.get("prefix", []):
         x, c, a = apply_layer(lp, x, cfg, _attn_kind(cfg), False, sin=sin,
-                              cos=cos, make_cache_len=make_cache_len)
+                              cos=cos, kv_repeat=kv_repeat,
+                              make_cache_len=make_cache_len)
         prefix_caches.append(c)
         aux = aux + a
 
@@ -290,7 +302,7 @@ def apply_stack(params, x, cfg, *, sin, cos, make_cache_len: int = 0):
         for i, (kind, mf) in enumerate(zip(kinds, moe_flags)):
             x, caches[f"l{i}"], a = apply_layer(
                 gp[f"l{i}"], x, cfg, kind, mf, sin=sin, cos=cos,
-                make_cache_len=make_cache_len)
+                kv_repeat=kv_repeat, make_cache_len=make_cache_len)
             aux = aux + a
         return x, aux, caches
 
@@ -311,18 +323,20 @@ def apply_stack(params, x, cfg, *, sin, cos, make_cache_len: int = 0):
     return x, caches, aux
 
 
-def apply_stack_decode(params, x, cfg, caches, position, *, sin, cos):
+def apply_stack_decode(params, x, cfg, caches, position, *, sin, cos,
+                       kv_repeat: int = 1):
     """Returns (x, caches, aux); the caches are updated in place."""
     kinds, moe_flags, _ = group_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, c in zip(params.get("prefix", []), caches.get("prefix", [])):
         x, _, a = apply_layer_decode(lp, x, cfg, _attn_kind(cfg), False, c,
-                                     position, sin=sin, cos=cos)
+                                     position, sin=sin, cos=cos,
+                                     kv_repeat=kv_repeat)
         aux = aux + a
     for gp, gc in zip(params["groups"], caches["groups"]):
         for i, (kind, mf) in enumerate(zip(kinds, moe_flags)):
             x, _, a = apply_layer_decode(gp[f"l{i}"], x, cfg, kind, mf,
                                          gc[f"l{i}"], position, sin=sin,
-                                         cos=cos)
+                                         cos=cos, kv_repeat=kv_repeat)
             aux = aux + a
     return x, caches, aux

@@ -63,23 +63,26 @@ def init_encdec(gen, cfg, dtype):
     }
 
 
-def encode(params, frames, cfg):
+def encode(params, frames, cfg, *, tp: int = 1):
     """frames: (B, S, d) stub embeddings -> encoder output (bf16)."""
     pos = sinusoid_pos(frames.shape[1], cfg.d_model, device=frames.device)
     x = (frames + pos.to(frames.dtype)).to(torch.bfloat16)
     x = shard_act(x, ("batch", None, "embed"))
+    kv_rep = attn_mod.kv_repeat_for(cfg, tp)
     for lp in params["enc_layers"]:
         h = norm(lp["norm1"], x, cfg)
-        y, _ = attn_mod.attention(lp["attn"], h, cfg, causal=False)
+        y, _ = attn_mod.attention(lp["attn"], h, cfg, causal=False,
+                                  kv_repeat=kv_rep)
         x = x + y
         x = x + mlp(lp["mlp"], norm(lp["norm2"], x, cfg), cfg)
         x = shard_act(x, ("batch", None, "embed"))
     return norm(params["enc_norm"], x, cfg)
 
 
-def _dec_layer(lp, x, enc_kv, cfg, make_cache_len=0):
+def _dec_layer(lp, x, enc_kv, cfg, kv_rep, make_cache_len=0):
     h = norm(lp["norm1"], x, cfg)
     y, new_cache = attn_mod.attention(lp["self_attn"], h, cfg,
+                                      kv_repeat=kv_rep,
                                       make_cache_len=make_cache_len)
     x = x + y
     h = norm(lp["norm2"], x, cfg)
@@ -88,9 +91,10 @@ def _dec_layer(lp, x, enc_kv, cfg, make_cache_len=0):
     return x, new_cache
 
 
-def decode_train(params, enc_out, dec_tokens, cfg, *,
+def decode_train(params, enc_out, dec_tokens, cfg, *, tp: int = 1,
                  make_cache_len: int = 0):
     """Teacher-forced decoder pass. Returns (logits, caches)."""
+    kv_rep = attn_mod.kv_repeat_for(cfg, tp)
     x = embed(params["dec_embed"], dec_tokens, cfg)
     x = x + sinusoid_pos(x.shape[1], cfg.d_model,
                          device=x.device).to(x.dtype)
@@ -98,8 +102,9 @@ def decode_train(params, enc_out, dec_tokens, cfg, *,
     caches = []
     for lp in params["dec_layers"]:
         # cross-attn K/V computed per layer from encoder output
-        enc_kv = attn_mod.encode_cross_kv(lp["cross_attn"], enc_out, cfg)
-        x, cache = _dec_layer(lp, x, enc_kv, cfg,
+        enc_kv = attn_mod.encode_cross_kv(lp["cross_attn"], enc_out, cfg,
+                                          kv_rep)
+        x, cache = _dec_layer(lp, x, enc_kv, cfg, kv_rep,
                               make_cache_len=make_cache_len)
         caches.append(cache)
     x = norm(params["dec_norm"], x, cfg)
@@ -108,20 +113,23 @@ def decode_train(params, enc_out, dec_tokens, cfg, *,
 
 
 def init_dec_caches(params, enc_out, cfg, batch: int, max_len: int,
-                    dtype=torch.bfloat16):
+                    tp: int = 1, dtype=torch.bfloat16):
     """Empty self-attn caches + precomputed cross K/V for every decoder
     layer, on ``enc_out``'s device."""
     dev = enc_out.device
-    return {"self": [attn_mod.init_cache(cfg, batch, max_len, dev, dtype)
+    kv_rep = attn_mod.kv_repeat_for(cfg, tp)
+    return {"self": [attn_mod.init_cache(cfg, batch, max_len, dev, dtype,
+                                         kv_rep)
                      for _ in params["dec_layers"]],
             "cross": [attn_mod.encode_cross_kv(lp["cross_attn"], enc_out,
-                                               cfg)
+                                               cfg, kv_rep)
                       for lp in params["dec_layers"]]}
 
 
-def decode_step(params, token, cfg, caches, position: int):
+def decode_step(params, token, cfg, caches, position: int, *, tp: int = 1):
     """token: (B, 1); position: an int.  Returns (logits, caches); the
     self-attention caches are updated in place."""
+    kv_rep = attn_mod.kv_repeat_for(cfg, tp)
     x = embed(params["dec_embed"], token, cfg)
     x = x + sinusoid_pos(1, cfg.d_model, offset=position,
                          device=x.device).to(x.dtype)
@@ -129,7 +137,7 @@ def decode_step(params, token, cfg, caches, position: int):
                                     caches["cross"]):
         h = norm(lp["norm1"], x, cfg)
         y, _ = attn_mod.attention_decode(lp["self_attn"], h, cfg, self_c,
-                                         position)
+                                         position, kv_repeat=kv_rep)
         x = x + y
         h = norm(lp["norm2"], x, cfg)
         x = x + attn_mod.cross_attention(lp["cross_attn"], h, cross_kv, cfg)

@@ -84,9 +84,11 @@ def _weights(s, mask, dtype):
 
 
 def mla_attention(params, x, cfg, *, sin=None, cos=None,
-                  make_cache_len: int = 0):
+                  make_cache_len: int = 0, kv_repeat: int = 1):
     """Naive (expanded) MLA for train/prefill. Returns (y, cache); the
-    cache is the latent ``ckv`` / ``kr`` padded to ``make_cache_len``."""
+    cache is the latent ``ckv`` / ``kr`` padded to ``make_cache_len``.
+    ``kv_repeat`` is taken and unused, as in the reference: the latent
+    cache has no KV heads to repeat."""
     dn, dr, dv, _ = _dims(cfg)
     B, T, _ = x.shape
     H = cfg.n_heads
@@ -134,8 +136,10 @@ def _absorbed(q_nope, q_rope, ckv, kr, valid, wk, wv, scale, dtype):
     return torch.einsum("bthl,lhd->bthd", ctx, wv)
 
 
-def mla_decode(params, x, cfg, cache, position, *, sin=None, cos=None):
-    """Absorbed-form single-token decode against the latent cache.
+def mla_decode(params, x, cfg, cache, position, *, sin=None, cos=None,
+               kv_repeat: int = 1):
+    """Absorbed-form single-token decode against the latent cache
+    (``kv_repeat`` taken and unused, as in the reference).
     x: (B, 1, d); position: an int or a (B,) int tensor.  The new latent
     row is written into the cache in place; the returned cache is the
     same dict.

@@ -9,9 +9,10 @@ puts them on the first GPU unless it is given ``device="cpu"``.
 ``param_specs`` and ``input_specs`` give shape stand-ins (fake tensors:
 a shape and a type, no storage) for the sharding rules and the
 dry-run; the parameters' logical axes come from the initialisers
-(``models.param.recording_axes``).  The reference's ``tp=`` (KV heads
-repeated for a model axis) is not taken: the port keeps no
-``kv_repeat``.
+(``models.param.recording_axes``).  ``tp=`` (every entry's, default 1)
+is the model-parallel degree the K/V heads are repeated for
+(``attention.kv_repeat_for``): it changes the caches' head count, never
+the parameters or a value.
 """
 from __future__ import annotations
 
@@ -43,20 +44,22 @@ def init(cfg: ArchConfig, seed: int = 0, *, device=None,
     return tf_mod.init_lm(gen, cfg, dtype)
 
 
-def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]):
+def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
+            tp: int = 1):
     """Training/prefill forward. Returns (logits, aux_loss)."""
     if cfg.is_encoder_decoder:
-        enc_out = encdec_mod.encode(params, batch["frames"], cfg)
+        enc_out = encdec_mod.encode(params, batch["frames"], cfg, tp=tp)
         logits, _ = encdec_mod.decode_train(params, enc_out,
-                                            batch["dec_tokens"], cfg)
+                                            batch["dec_tokens"], cfg, tp=tp)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
     inputs = batch.get("embeds", batch.get("tokens"))
-    logits, _, aux = tf_mod.lm_forward(params, inputs, cfg)
+    logits, _, aux = tf_mod.lm_forward(params, inputs, cfg, tp=tp)
     return logits, aux
 
 
-def prefill(cfg: ArchConfig, params, batch, cache_len: int):
+def prefill(cfg: ArchConfig, params, batch, cache_len: int, *,
+            tp: int = 1):
     """Prefill pass that also materialises decode caches.
 
     Encoder-decoder: as in the reference, the decoder's prompt is run
@@ -64,19 +67,20 @@ def prefill(cfg: ArchConfig, params, batch, cache_len: int):
     caches are ``init_dec_caches``' (empty self-attention caches, the
     encoder's cross K/V)."""
     if cfg.is_encoder_decoder:
-        enc_out = encdec_mod.encode(params, batch["frames"], cfg)
+        enc_out = encdec_mod.encode(params, batch["frames"], cfg, tp=tp)
         logits, _ = encdec_mod.decode_train(params, enc_out,
-                                            batch["dec_tokens"], cfg)
+                                            batch["dec_tokens"], cfg, tp=tp)
         caches = encdec_mod.init_dec_caches(
-            params, enc_out, cfg, batch["dec_tokens"].shape[0], cache_len)
+            params, enc_out, cfg, batch["dec_tokens"].shape[0], cache_len,
+            tp=tp)
         return logits, caches
     inputs = batch.get("embeds", batch.get("tokens"))
-    logits, caches, _ = tf_mod.lm_forward(params, inputs, cfg,
+    logits, caches, _ = tf_mod.lm_forward(params, inputs, cfg, tp=tp,
                                           make_cache_len=cache_len)
     return logits, caches
 
 
-def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, tp: int = 1,
                 device=None, params=None, enc_out=None):
     """Empty decode caches on ``device`` (default: the first GPU): bf16,
     the recurrent layers' states f32.
@@ -87,18 +91,21 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
             raise ValueError(f"{cfg.name}: an encoder-decoder's caches "
                              f"need params= and enc_out=")
         return encdec_mod.init_dec_caches(params, enc_out, cfg, batch,
-                                          max_len)
+                                          max_len, tp=tp)
     return tf_mod.init_lm_caches(cfg, batch, max_len,
-                                 resolve_device(device))
+                                 resolve_device(device), tp=tp)
 
 
-def decode_step(cfg: ArchConfig, params, token, caches, position):
+def decode_step(cfg: ArchConfig, params, token, caches, position, *,
+                tp: int = 1):
     """One-token decode at ``position``: an int, or (decoder-only) a (B,)
     int tensor of per-row positions.  Returns (logits, caches); the
     caches are updated in place."""
     if cfg.is_encoder_decoder:
-        return encdec_mod.decode_step(params, token, cfg, caches, position)
-    return tf_mod.lm_decode_step(params, token, cfg, caches, position)
+        return encdec_mod.decode_step(params, token, cfg, caches, position,
+                                      tp=tp)
+    return tf_mod.lm_decode_step(params, token, cfg, caches, position,
+                                 tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -109,12 +116,13 @@ def _fake_mode():
     return FakeTensorMode()
 
 
-def input_specs(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, Any]:
+def input_specs(cfg: ArchConfig, cell: ShapeCell, *, tp: int = 1
+                ) -> Dict[str, Any]:
     """Stand-ins for every model input of this (arch x shape) cell: the
     batch dict for train / prefill; for decode one new ``token`` per
     row, a scalar ``position`` and the caches of ``cell.seq_len``
-    tokens (``init_caches``' tree; an encoder-decoder's holds its
-    encoder's cross K/V)."""
+    tokens (``init_caches(tp=tp)``' tree, the K/V heads repeated for
+    ``tp``; an encoder-decoder's holds its encoder's cross K/V)."""
     B, T = cell.global_batch, cell.seq_len
     i32, bf16 = torch.int32, torch.bfloat16
     with _fake_mode():
@@ -136,9 +144,10 @@ def input_specs(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, Any]:
         if cfg.is_encoder_decoder:
             params = init(cfg, 0, device="cpu")
             caches = encdec_mod.init_dec_caches(
-                params, sds((B, T, cfg.d_model), bf16), cfg, B, T)
+                params, sds((B, T, cfg.d_model), bf16), cfg, B, T, tp=tp)
         else:
-            caches = tf_mod.init_lm_caches(cfg, B, T, torch.device("cpu"))
+            caches = tf_mod.init_lm_caches(cfg, B, T, torch.device("cpu"),
+                                           tp=tp)
     return {"token": token, "caches": caches, "position": position}
 
 

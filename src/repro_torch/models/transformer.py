@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models.layers import (embed, init_embedding, init_norm,
                                        init_unembed, norm, rope_table,
@@ -39,8 +40,10 @@ def _inputs_to_h(params, inputs, cfg):
     return embed(params["embed"], inputs, cfg)
 
 
-def lm_forward(params, inputs, cfg, *, make_cache_len: int = 0):
-    """inputs: (B, T) int tokens or (B, T, d) stub embeddings.
+def lm_forward(params, inputs, cfg, *, tp: int = 1, make_cache_len: int = 0):
+    """inputs: (B, T) int tokens or (B, T, d) stub embeddings; ``tp`` the
+    model-parallel degree the K/V heads are repeated for
+    (``attention.kv_repeat_for``).
 
     Returns (logits, caches, aux_loss); activations are bf16."""
     x = _inputs_to_h(params, inputs, cfg).to(torch.bfloat16)
@@ -50,9 +53,10 @@ def lm_forward(params, inputs, cfg, *, make_cache_len: int = 0):
         T = x.shape[1]
         sin, cos = rope_table(_rope_dim(cfg), T, cfg.rope_theta,
                               torch.arange(T, device=x.device))
-    x, caches, aux = blocks.apply_stack(params["stack"], x, cfg, sin=sin,
-                                        cos=cos,
-                                        make_cache_len=make_cache_len)
+    x, caches, aux = blocks.apply_stack(
+        params["stack"], x, cfg, sin=sin, cos=cos,
+        kv_repeat=attn_mod.kv_repeat_for(cfg, tp),
+        make_cache_len=make_cache_len)
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params.get("unembed"), x, cfg,
                      embed_params=params["embed"])
@@ -60,11 +64,12 @@ def lm_forward(params, inputs, cfg, *, make_cache_len: int = 0):
     return logits, caches, aux
 
 
-def init_lm_caches(cfg, batch: int, max_len: int, device):
-    return blocks.init_stack_caches(cfg, batch, max_len, device)
+def init_lm_caches(cfg, batch: int, max_len: int, device, tp: int = 1):
+    return blocks.init_stack_caches(cfg, batch, max_len, device,
+                                    attn_mod.kv_repeat_for(cfg, tp))
 
 
-def lm_decode_step(params, inputs, cfg, caches, position):
+def lm_decode_step(params, inputs, cfg, caches, position, *, tp: int = 1):
     """inputs: (B, 1) token ids (or (B, 1, d) embeds); position: an int,
     or a (B,) int tensor of per-row positions.
 
@@ -81,9 +86,9 @@ def lm_decode_step(params, inputs, cfg, caches, position):
             sin, cos = rope_table(dim, 1, cfg.rope_theta,
                                   position.to(x.device))
             sin, cos = sin[:, None, None, :], cos[:, None, None, :]
-    x, caches, _ = blocks.apply_stack_decode(params["stack"], x, cfg,
-                                             caches, position, sin=sin,
-                                             cos=cos)
+    x, caches, _ = blocks.apply_stack_decode(
+        params["stack"], x, cfg, caches, position, sin=sin, cos=cos,
+        kv_repeat=attn_mod.kv_repeat_for(cfg, tp))
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params.get("unembed"), x, cfg,
                      embed_params=params["embed"])

@@ -500,12 +500,13 @@ class LMStepper:
     Each lane runs on its own device from that device's copy of the
     weights (``workloads.requests.WeightCopies``: ``params`` serves its
     own device, a copy is made here, once, for every other device in
-    ``devices``).  A lane whose device has no copy raises.
+    ``devices``).  A lane whose device has no copy raises.  ``tp`` is
+    the model-parallel degree the slots' K/V heads are repeated for.
     """
 
     def __init__(self, cfg, params, *, prompt_len: int, new_tokens: int,
                  cache_len: Optional[int] = None, n_slots: int = 4,
-                 workload: str = "", devices=()):
+                 tp: int = 1, workload: str = "", devices=()):
         from repro_torch.core import cost_model
         from repro_torch.models.param import count_params
         from repro_torch.serve.serve_step import make_slot_step
@@ -516,6 +517,7 @@ class LMStepper:
         self.new_tokens = int(new_tokens)
         self.cache_len = int(cache_len or (prompt_len + new_tokens + 1))
         self.n_slots = int(n_slots)
+        self.tp = int(tp)
         self.workload = workload or f"serve-lm-cb/{cfg.name}"
         self._copies = WeightCopies(params, devices, owner=self.workload)
         self.weights = self._copies.on
@@ -524,7 +526,7 @@ class LMStepper:
         self.prefill_cost = cost_model.lm_prefill_terms(
             n_params, self.prompt_len)
         self.decode_cost = cost_model.lm_decode_terms(n_params)
-        self._slot_step = make_slot_step(cfg)
+        self._slot_step = make_slot_step(cfg, tp=self.tp)
 
     def _prefill(self, prompt):
         """(first (B,) int32, caches) of one prefill on ``prompt``'s
@@ -534,7 +536,7 @@ class LMStepper:
         with torch.inference_mode():
             logits, caches = model_zoo.prefill(
                 self.cfg, self.weights(prompt.device), {"tokens": prompt},
-                cache_len=self.cache_len)
+                cache_len=self.cache_len, tp=self.tp)
             first = torch.argmax(logits[:, -1].float(), dim=-1)
         return first.to(torch.int32), caches
 

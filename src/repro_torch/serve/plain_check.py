@@ -42,11 +42,11 @@ def plain_kernels():
         flash_ops.sdpa, gmm_ops.gmm_model = saved
 
 
-def greedy_with_gaps(cfg, params, prompt, n_new):
+def greedy_with_gaps(cfg, params, prompt, n_new, tp: int = 1):
     """``generate``'s tokens (B, n_new + 1), each token's top-1 minus
     top-2 logit, and the last prompt position's f32 logits (B, V)."""
     with torch.inference_mode():
-        rows = list(greedy_logits(cfg, params, prompt, n_new))
+        rows = list(greedy_logits(cfg, params, prompt, n_new, tp=tp))
     lg = torch.stack(rows, dim=1)
     top2 = lg.topk(2, dim=-1).values
     return (lg.argmax(-1).to(torch.int32), top2[..., 0] - top2[..., 1],

@@ -4,7 +4,9 @@ and the continuous engine's slot-batched step.
 Sampling draws from an explicit ``torch.Generator`` by the Gumbel-max
 rule, as ``jax.random.categorical`` does: the argmax of ``logits / T``
 plus standard Gumbel noise, a draw from ``softmax(logits / T)``.  At
-``temperature=0`` every entry is the greedy path, bitwise.
+``temperature=0`` every entry is the greedy path, bitwise.  ``tp=``
+(default 1) is the model-parallel degree the K/V heads and caches are
+repeated for (``models.attention.kv_repeat_for``).
 """
 from __future__ import annotations
 
@@ -16,12 +18,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model_zoo
 
 
-def make_prefill_step(cfg: ArchConfig, *, cache_len: int = 0):
+def make_prefill_step(cfg: ArchConfig, *, tp: int = 1, cache_len: int = 0):
     """prefill_step(params, batch) -> (next_token (B, 1), caches)."""
 
     def prefill_step(params, batch):
         logits, caches = model_zoo.prefill(
-            cfg, params, batch, cache_len or batch["tokens"].shape[1])
+            cfg, params, batch, cache_len or batch["tokens"].shape[1], tp=tp)
         next_tok = torch.argmax(logits[:, -1:], dim=-1)
         return next_tok, caches
 
@@ -44,14 +46,15 @@ def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
                         dim=-1)
 
 
-def make_serve_step(cfg: ArchConfig, *, temperature: float = 0.0):
+def make_serve_step(cfg: ArchConfig, *, tp: int = 1,
+                    temperature: float = 0.0):
     """serve_step(params, token, caches, position[, generator]) ->
     (next_token (B, 1) int32, caches), the caches updated in place;
     greedy unless ``temperature > 0`` and a generator is given."""
 
     def serve_step(params, token, caches, position, generator=None):
         logits, caches = model_zoo.decode_step(cfg, params, token, caches,
-                                               position)
+                                               position, tp=tp)
         next_tok = sample_tokens(logits[:, 0].float(), temperature,
                                  generator)
         return next_tok[:, None].to(torch.int32), caches
@@ -59,7 +62,7 @@ def make_serve_step(cfg: ArchConfig, *, temperature: float = 0.0):
     return serve_step
 
 
-def make_slot_step(cfg: ArchConfig):
+def make_slot_step(cfg: ArchConfig, *, tp: int = 1):
     """Slot-batched decode step for the continuous-batching engine.
 
     ``slot_step(params, tokens, slot_caches, positions) -> (next_tokens,
@@ -71,7 +74,7 @@ def make_slot_step(cfg: ArchConfig):
     carries the slots and every op is row-independent), which is what
     keeps join/evict bit-identical to solo decode; dead slots compute
     garbage that nothing reads."""
-    step = make_serve_step(cfg)
+    step = make_serve_step(cfg, tp=tp)
 
     def slot_step(params, tokens, slot_caches, positions):
         with torch.inference_mode():
@@ -83,27 +86,29 @@ def make_slot_step(cfg: ArchConfig):
 
 
 def greedy_logits(cfg: ArchConfig, params, prompt: torch.Tensor,
-                  n_new: int, *, cache_len: Optional[int] = None
+                  n_new: int, *, tp: int = 1, cache_len: Optional[int] = None
                   ) -> Iterator[torch.Tensor]:
     """Yields the (B, V) f32 logits that pick each of ``generate``'s
     tokens: the prefill's last position, then each of the ``n_new``
     decode steps, whose input is the argmax of the logits before."""
     P = prompt.shape[1]
     logits, caches = model_zoo.prefill(cfg, params, {"tokens": prompt},
-                                       cache_len=cache_len or (P + n_new))
+                                       cache_len=cache_len or (P + n_new),
+                                       tp=tp)
     lg = logits[:, -1].float()
     del logits
     yield lg
     for t in range(n_new):
         tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
         logits, caches = model_zoo.decode_step(cfg, params, tok, caches,
-                                               P + t)
+                                               P + t, tp=tp)
         lg = logits[:, 0].float()
         yield lg
 
 
 def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int, *,
-             cache_len: Optional[int] = None, temperature: float = 0.0,
+             tp: int = 1, cache_len: Optional[int] = None,
+             temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Generation: prefill, then ``n_new`` decode steps, greedy unless
     ``temperature > 0`` and a generator is given (the first token, the
@@ -113,11 +118,11 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, n_new: int, *,
     decode step's, the reference's layout (its scan collects each step's
     input token and appends the last output)."""
     P = prompt.shape[1]
-    step = make_serve_step(cfg, temperature=temperature)
+    step = make_serve_step(cfg, tp=tp, temperature=temperature)
     with torch.inference_mode():
         logits, caches = model_zoo.prefill(
             cfg, params, {"tokens": prompt},
-            cache_len=cache_len or (P + n_new))
+            cache_len=cache_len or (P + n_new), tp=tp)
         tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(
             torch.int32)
         del logits

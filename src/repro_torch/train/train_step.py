@@ -50,27 +50,27 @@ def cross_entropy(logits, labels, mask=None):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def loss_fn(params, batch: Dict, cfg: ArchConfig):
-    logits, aux = model_zoo.forward(cfg, params, batch)
+def loss_fn(params, batch: Dict, cfg: ArchConfig, *, tp: int = 1):
+    logits, aux = model_zoo.forward(cfg, params, batch, tp=tp)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def value_and_grad(params, batch: Dict, cfg: ArchConfig):
+def value_and_grad(params, batch: Dict, cfg: ArchConfig, *, tp: int = 1):
     """(loss, parts, grads): ``grads`` a tree like ``params`` (a leaf
     the loss does not reach gets zeros)."""
     ps = leaves(params)
     with torch.enable_grad():
         req = [p.detach().requires_grad_(True) for p in ps]
-        loss, parts = loss_fn(unflatten(params, req), batch, cfg)
+        loss, parts = loss_fn(unflatten(params, req), batch, cfg, tp=tp)
         grads = torch.autograd.grad(loss, req, allow_unused=True,
                                     materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in parts.items()},
             unflatten(params, list(grads)))
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *, accum: int = 1,
-                    grad_reduce_dtype: Optional[str] = None):
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *, tp: int = 1,
+                    accum: int = 1, grad_reduce_dtype: Optional[str] = None):
     """Returns train_step(params, opt_state, batch, step) ->
     (params, opt_state, metrics).  With accum > 1 the leading batch dim
     is split into ``accum`` micro-batches run one after another, their
@@ -80,7 +80,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *, accum: int = 1,
 
     def train_step(params, opt_state, batch, step):
         if accum == 1:
-            loss, parts, grads = value_and_grad(params, batch, cfg)
+            loss, parts, grads = value_and_grad(params, batch, cfg, tp=tp)
         else:
             micro = {k: v.reshape((accum, v.shape[0] // accum)
                                   + tuple(v.shape[1:]))
@@ -93,7 +93,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *, accum: int = 1,
             acc = leaves(grads)
             for i in range(accum):
                 mb = {k: v[i] for k, v in micro.items()}
-                loss_i, parts_i, g = value_and_grad(params, mb, cfg)
+                loss_i, parts_i, g = value_and_grad(params, mb, cfg, tp=tp)
                 for a, x in zip(acc, leaves(g)):
                     a.add_(x.to(a.dtype))
                 del g

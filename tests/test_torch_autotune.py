@@ -16,8 +16,11 @@ kernel's ``candidates`` / ``shape_bucket`` / ``cost_terms`` /
   ``conv2d_ref`` / ``conv2d_shift_add``: ``conv2d_pallas`` raises on
   this jax).
 * With the search off every op computes bitwise what it computed
-  before autotuning (the CPU peer of each kernel), and the LM's entries
-  (``sdpa``, ``gmm_model``) read no tune cache even with it on.
+  before autotuning (the CPU peer of each kernel); with it on, ``sdpa``
+  without a config reads no tune cache (the model layer resolves its
+  own through ``model_config``) and ``gmm_model`` reads the hit of its
+  bucket, neither timing anything (``tests/test_torch_tuned_layers.py``
+  holds the model layers' lookup against the reference's).
 * ``candidates`` on a CUDA device never lists an entry a route rules
   out for correctness (pure functions: they run here).
 * The port's entries are keyed ``torch:cpu``; the reference never
@@ -517,9 +520,13 @@ def test_search_off_is_bitwise_the_cpu_peer(monkeypatch, op):
 
 
 @pytest.mark.parametrize("op", ["sdpa", "gmm_model"])
-def test_lm_entries_read_no_tune_cache(stores, op):
-    """The LM path keeps its default even where the tune cache holds
-    another winner for its bucket."""
+def test_lm_entries_read_no_tune_cache(stores, op, monkeypatch):
+    """Where the tune cache holds another winner for the bucket, ``sdpa``
+    without a config keeps the device's default: it reads no tune cache
+    (the model layer passes ``model_config``'s pin or hit).
+    ``gmm_model`` is the MoE layers' lookup itself: it runs the hit
+    (``torch_einsum``, not the CPU default ``torch_plain``).  Neither
+    searches."""
     cache = at.get_tune_cache()
     cache.put("torch:cpu", "flash_attention",
               flash_ops.shape_bucket(8, 40, 40, 16, True),
@@ -532,7 +539,14 @@ def test_lm_entries_read_no_tune_cache(stores, op):
     prev = at.set_timer(boom)
     try:
         new, before = _search_off_cases()[op]
-        assert torch.equal(new(), before())
+        if op == "gmm_model":
+            ran, einsum = [], gmm_ops.gmm_ref
+            monkeypatch.setattr(gmm_ops, "gmm_ref", lambda x, w: (
+                ran.append(einsum(x, w)), ran[-1])[1])
+            out = new()
+            assert len(ran) == 1 and out is ran[0]
+        else:
+            assert torch.equal(new(), before())
     finally:
         at.set_timer(prev)
 

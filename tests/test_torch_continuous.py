@@ -50,6 +50,7 @@ from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.serve_step import (generate, make_serve_step,
                                           make_slot_step, sample_tokens)
 from repro_torch.workloads import requests as adapters
+from torch_ref_pin import ref_op_by_op
 
 CPU = torch.device("cpu")
 KIMI = "kimi-k2-1t-a32b"
@@ -705,15 +706,13 @@ def test_slot_step_is_one_batched_decode_step(lm):
 # ---------------------------------------------------------------------------
 # parity with the reference
 # ---------------------------------------------------------------------------
-def test_engine_tokens_match_reference_generate(monkeypatch):
+def test_engine_tokens_match_reference_generate():
     """The engine's tokens on parameters carried from the reference by
     ``from_jax`` equal the port's solo ``generate`` bitwise and the
     reference's ``generate`` (op by op, ``jax.disable_jit()``, its
     attention pinned to ``xla_ref``) up to a near tie: a token may
     differ only where the reference's top-1/top-2 gap is under the bf16
     model tolerance, and the row is compared no further."""
-    monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION",
-                       '{"impl": "xla_ref"}')
     jcfg = jax_registry.get(KIMI).reduced()
     cfg = registry.get(KIMI).reduced()
     jtree = jax_param.values(jax_zoo.init(jcfg, jax.random.key(0)))
@@ -735,14 +734,14 @@ def test_engine_tokens_match_reference_generate(monkeypatch):
     solo = generate(cfg, tree, torch.as_tensor(prompts).long(), NEW_TOKENS,
                     cache_len=CACHE_LEN).numpy()
     np.testing.assert_array_equal(out, solo)
-    with jax.disable_jit():
+    with ref_op_by_op():
         ref = np.asarray(jax_serve.generate(
             jcfg, jtree, jnp.asarray(prompts), NEW_TOKENS,
             cache_len=CACHE_LEN))
     if np.array_equal(out, ref):
         return
     # the reference's top-1/top-2 gaps along its own tokens
-    with jax.disable_jit():
+    with ref_op_by_op():
         lg, c = jax_zoo.prefill(jcfg, jtree, {"tokens": jnp.asarray(prompts)},
                                 cache_len=CACHE_LEN)
         logits = [np.asarray(lg[:, -1], np.float32)]

@@ -1022,6 +1022,87 @@ def test_pinned_forbidden_entry_raises_on_gpu(gpu, kernel, pin, call,
 
 
 @pytest.mark.needs_cuda
+def test_model_layers_launch_a_hit_and_not_a_pin_on_gpu(gpu, tmp_path,
+                                                        monkeypatch):
+    """The model layers' lookup on the card: with the search on and no
+    hit, a no-grad attention and MoE layer launch K7 and K8 on their
+    routes; a ``torch:cuda`` hit naming the CUDA-core entries moves
+    every launch there with nothing timed; ``torch_*`` pins launch
+    neither kernel."""
+    from repro_torch.configs import registry
+    from repro_torch.models import attention, model_zoo, moe
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    at.reset_tune_cache()
+    cfg = registry.get("kimi-k2-1t-a32b").reduced()
+    layer = model_zoo.init(cfg, 0, device=gpu)["stack"]["groups"][0]["l0"]
+    B, T, H, d = 2, 64, cfg.n_heads, cfg.head_dim_()
+    x = torch.randn(B, T, cfg.d_model, device=gpu).to(torch.bfloat16)
+    shapes, real = set(), gmm_ops._gmm_cfg
+
+    def gmm_cfg(x_, w_, cfg_):
+        shapes.add((*x_.shape, w_.shape[2]))
+        return real(x_, w_, cfg_)
+    monkeypatch.setattr(gmm_ops, "_gmm_cfg", gmm_cfg)
+
+    def run():
+        common.reset_launches()
+        with torch.no_grad():
+            attention.attention(layer["mix"], x, cfg)
+            moe.moe_ffn(layer["ffn"], x, cfg)
+        torch.cuda.synchronize()
+        return common.launch_counts(), common.entry_counts()
+
+    try:
+        counts, entries = run()
+        assert entries[flash_route(torch.bfloat16, d)] == 1
+        assert counts["gmm"] > 0
+        cache = at.get_tune_cache()
+        cache.put("torch:cuda", "flash_attention",
+                  flash_ops.shape_bucket(B * H, T, T, d, True),
+                  {"impl": "cuda", "entry": "flash_attention_fma_bf16"}, 1.0)
+        for E, C, D, F in shapes:
+            cache.put("torch:cuda", "gmm", gmm_ops.shape_bucket(E, C, D, F),
+                      {"impl": "cuda", "entry": "gmm_fma_bf16"}, 1.0)
+        timed = []
+        prev = at.set_timer(lambda fn: timed.append(1) or 1.0)
+        try:
+            hit_counts, entries = run()
+        finally:
+            at.set_timer(prev)
+        assert timed == [] and hit_counts == counts
+        assert entries["flash_attention_fma_bf16"] == 1
+        assert entries["gmm_fma_bf16"] == counts["gmm"]
+        monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION",
+                           '{"impl": "torch_blocked"}')
+        monkeypatch.setenv("REPRO_TUNE_PIN_GMM", '{"impl": "torch_einsum"}')
+        counts, _ = run()
+        assert counts["flash_attention"] == 0 and counts["gmm"] == 0
+    finally:
+        at.reset_tune_cache()
+
+
+@pytest.mark.needs_cuda
+def test_tp16_prefill_runs_k7_over_the_repeated_heads_on_gpu(gpu):
+    """kimi-k2 ``reduced()`` at tp = 16 (kv_repeat 2): the prefill
+    launches K7 once a layer, and its tokens equal tp = 1's under the
+    margin rule."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serve_step import generate
+
+    cfg = registry.get("kimi-k2-1t-a32b").reduced()
+    params = model_zoo.init(cfg, 0, device=gpu)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64), device=gpu)
+    plain, gaps, _ = greedy_with_gaps(cfg, params, prompt, 4)
+    common.reset_launches()
+    toks = generate(cfg, params, prompt, 4, tp=16)
+    assert common.launch_counts()["flash_attention"] == cfg.n_layers
+    check_tokens(toks, plain, gaps)
+
+
+@pytest.mark.needs_cuda
 def test_torch_conv_candidate_keeps_tf32_off_on_gpu(gpu):
     """``F.conv2d`` as a candidate holds conv's 2e-4 even where the
     caller left cuDNN's TF32 on, and leaves the flag as it found it."""

@@ -35,6 +35,7 @@ from repro_torch.launch import serve as serve_launch
 from repro_torch.models import attention, encdec, model_zoo
 from repro_torch.models.from_jax import params_from_numpy
 from repro_torch.models.param import leaves
+from torch_ref_pin import ref_op_by_op
 
 WHISPER = "whisper-tiny"
 BF16_ATOL, BF16_RTOL = 0.25, 0.1
@@ -75,13 +76,6 @@ def _inputs(cfg, B=2, S=10, T=8, seed=5):
     frames = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
     dec = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
     return frames, dec
-
-
-@pytest.fixture
-def pinned(monkeypatch):
-    """The reference's unmasked attention on its unblocked f32 oracle."""
-    monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION",
-                       '{"impl": "xla_ref"}')
 
 
 # -------------------------------------------------------------- layout
@@ -154,12 +148,12 @@ def test_cross_attention_goes_through_the_flash_entry(monkeypatch):
 
 
 # --------------------------------------------------------- whole model
-def test_forward_and_encode_match_reference(pinned):
+def test_forward_and_encode_match_reference():
     jcfg, jtree, cfg, tree = _pair(torch.bfloat16)
     frames, dec = _inputs(cfg)
     fb = _t(frames).bfloat16()
     jfb = jnp.asarray(frames, jnp.bfloat16)
-    with jax.disable_jit():
+    with ref_op_by_op():
         jenc = jax_encdec.encode(jtree, jfb, jcfg)
         jfull, _ = jax_zoo.forward(jcfg, jtree, {"frames": jfb,
                                                  "dec_tokens": jnp.asarray(
@@ -176,14 +170,14 @@ def test_forward_and_encode_match_reference(pinned):
                                rtol=BF16_RTOL)
 
 
-def test_decode_step_matches_reference(pinned):
+def test_decode_step_matches_reference():
     """``init_caches(params=, enc_out=)`` then teacher-forced
     ``decode_step``s, against the reference doing the same."""
     jcfg, jtree, cfg, tree = _pair(torch.bfloat16)
     frames, dec = _inputs(cfg)
     fb = _t(frames).bfloat16()
     jfb = jnp.asarray(frames, jnp.bfloat16)
-    with jax.disable_jit():
+    with ref_op_by_op():
         jenc = jax_encdec.encode(jtree, jfb, jcfg)
         jc = jax_zoo.init_caches(jcfg, 2, 8, params=jtree, enc_out=jenc)
         jsteps = []
@@ -209,7 +203,7 @@ def test_decode_step_matches_reference(pinned):
                                    rtol=BF16_RTOL, err_msg=f"step {t}")
 
 
-def test_prefill_returns_empty_self_caches_as_the_reference(pinned):
+def test_prefill_returns_empty_self_caches_as_the_reference():
     """The reference's enc-dec ``prefill`` returns ``init_dec_caches``:
     the decoder prompt's self-attention K/V are not written (kept as
     the reference has it).  The port does the same; its logits are
@@ -218,7 +212,7 @@ def test_prefill_returns_empty_self_caches_as_the_reference(pinned):
     frames, dec = _inputs(cfg)
     fb = _t(frames).bfloat16()
     batch = {"frames": fb, "dec_tokens": _t(dec)}
-    with jax.disable_jit():
+    with ref_op_by_op():
         _, jc = jax_zoo.prefill(jcfg, jtree, {
             "frames": jnp.asarray(frames, jnp.bfloat16),
             "dec_tokens": jnp.asarray(dec)}, cache_len=12)

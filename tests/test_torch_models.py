@@ -19,8 +19,10 @@ Tolerances:
 The whole-slice tests pin the reference's prefill attention to its
 unblocked f32 oracle (``REPRO_TUNE_PIN_FLASH_ATTENTION='{"impl":
 "xla_ref"}'``), which is what K7 computes, and run the reference op by
-op (``jax.disable_jit()``).  Compiled, XLA drops some of the bf16
-roundings between fused ops, and at this config the reference's
+op (``jax.disable_jit()``), both around the reference's calls only
+(``torch_ref_pin.ref_op_by_op``): the port's layers read the pin too,
+and ``xla_ref`` is no impl of the port's.  Compiled, XLA drops some of
+the bf16 roundings between fused ops, and at this config the reference's
 compiled and op-by-op forwards differ from each other by up to ~0.8 in
 the logits (an ulp moves a token past an expert's capacity); PyTorch
 rounds every op's result, as the reference's op-by-op form does.
@@ -48,6 +50,7 @@ from repro_torch.models import attention, layers, model_zoo, moe
 from repro_torch.models.from_jax import params_from_numpy
 from repro_torch.models.param import leaves
 from repro_torch.serve import plain_check, serve_step
+from torch_ref_pin import ref_op_by_op
 
 KIMI = "kimi-k2-1t-a32b"
 BF16_ATOL, BF16_RTOL = 0.25, 0.1
@@ -306,8 +309,7 @@ def test_moe_smap_raises():
 
 # --------------------------------------------------------- whole slice
 @pytest.fixture
-def kimi_pair(monkeypatch):
-    monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION", '{"impl": "xla_ref"}')
+def kimi_pair():
     jcfg, cfg = _kimi()
     jtree, tree = _pair(jcfg, torch.bfloat16)
     return jcfg, jtree, cfg, tree
@@ -348,7 +350,7 @@ def test_prefill_and_decode_match_reference(kimi_pair, monkeypatch):
     B, P, N = 2, 12, 5
     toks = np.random.default_rng(8).integers(
         0, cfg.vocab_size, (B, P + N)).astype(np.int32)
-    with jax.disable_jit():
+    with ref_op_by_op():
         jlog, jc = jax_zoo.prefill(jcfg, jtree, {"tokens": jnp.asarray(
             toks[:, :P])}, cache_len=P + N)
         jsteps = []
@@ -391,7 +393,7 @@ def test_forward_and_decode_from_empty_caches(kimi_pair):
         assert caches["prefix"][0]["k"].dtype == torch.bfloat16
         steps = [model_zoo.decode_step(cfg, tree, _t(toks[:, t:t + 1]),
                                        caches, t)[0] for t in range(4)]
-    with jax.disable_jit():
+    with ref_op_by_op():
         jc = jax_zoo.init_caches(jcfg, 2, 4)
         for t in range(4):
             lg, jc = jax_zoo.decode_step(jcfg, jtree,
@@ -407,7 +409,7 @@ def _top2_gaps(jcfg, jtree, prompt, tokens):
     token, teacher-forced along ``tokens`` (B, n_new + 1)."""
     B, P = prompt.shape
     n_new = tokens.shape[1] - 1
-    with jax.disable_jit():
+    with ref_op_by_op():
         lg, c = jax_zoo.prefill(jcfg, jtree, {"tokens": jnp.asarray(prompt)},
                                 cache_len=P + n_new)
         logits = [np.asarray(lg[:, -1], np.float32)]
@@ -431,7 +433,7 @@ def test_generate_matches_reference(kimi_pair, monkeypatch):
     B, P, N = 2, 10, 6
     prompt = np.random.default_rng(9).integers(
         0, cfg.vocab_size, (B, P)).astype(np.int32)
-    with jax.disable_jit():
+    with ref_op_by_op():
         ref = np.asarray(jax_serve.generate(jcfg, jtree, jnp.asarray(prompt),
                                             N))
     out = serve_step.generate(cfg, tree, _t(prompt), N)
@@ -546,14 +548,13 @@ def test_embeds_of_tokens_equal_the_tokens():
     assert torch.equal(st, se)
 
 
-def test_stub_embeddings_match_reference(monkeypatch):
+def test_stub_embeddings_match_reference():
     """A float (B, T, d) input is taken as precomputed embeddings (the
     reference's frontend stub, ``transformer._inputs_to_h``):
     ``forward`` and ``prefill`` read ``batch["embeds"]`` before
     ``batch["tokens"]``, and a decode step takes a (B, 1, d) embedding.
     chameleon-34b's reduced config (``frontend="vq_stub"``) against the
     reference's logits at the bf16 model tolerance."""
-    monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION", '{"impl": "xla_ref"}')
     arch = "chameleon-34b"
     jcfg = jax_registry.get(arch).reduced()
     cfg = registry.get(arch).reduced()
@@ -564,7 +565,7 @@ def test_stub_embeddings_match_reference(monkeypatch):
     emb = rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)
     eb = _t(emb).bfloat16()
     jeb = jnp.asarray(emb, jnp.bfloat16)
-    with jax.disable_jit():
+    with ref_op_by_op():
         jlog, _ = jax_zoo.forward(jcfg, jtree, {"embeds": jeb})
         jpre, jc = jax_zoo.prefill(jcfg, jtree, {"embeds": jeb[:, :T - 1]},
                                    cache_len=T)

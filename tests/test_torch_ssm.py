@@ -40,6 +40,7 @@ from repro_torch.models import blocks, layers, model_zoo, moe, ssm
 from repro_torch.models.from_jax import params_from_numpy
 from repro_torch.models.param import leaves
 from repro_torch.serve import continuous
+from torch_ref_pin import ref_op_by_op, ref_pinned
 
 JAMBA = "jamba-1.5-large-398b"
 BF16_ATOL, BF16_RTOL = 0.25, 0.1
@@ -274,14 +275,12 @@ def test_model_forward_prefill_decode_match_reference(monkeypatch):
     """``forward``, ``prefill`` and teacher-forced ``decode_step`` logits
     at the bf16 model tolerance, every MoE layer on the reference's
     experts; the port's own choices equal them but at near ties."""
-    monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION",
-                       '{"impl": "xla_ref"}')
     jcfg, jtree, cfg, tree = _pair(torch.bfloat16)
     seen = _routing(monkeypatch)
     B, P, N = 2, 8, 3
     toks = np.random.default_rng(3).integers(
         0, cfg.vocab_size, (B, P + N)).astype(np.int32)
-    with jax.disable_jit():
+    with ref_op_by_op():
         jfull, _ = jax_zoo.forward(jcfg, jtree, {"tokens": jnp.asarray(
             toks)})
         jlog, jc = jax_zoo.prefill(jcfg, jtree, {"tokens": jnp.asarray(
@@ -292,7 +291,7 @@ def test_model_forward_prefill_decode_match_reference(monkeypatch):
                                    cache_len=P + N)
     steps, jsteps = [], []
     for t in range(P, P + N):
-        with jax.disable_jit():
+        with ref_op_by_op():
             lg, jc = jax_zoo.decode_step(jcfg, jtree,
                                          jnp.asarray(toks[:, t:t + 1]), jc,
                                          jnp.int32(t))
@@ -316,8 +315,6 @@ def test_model_forward_prefill_decode_match_reference(monkeypatch):
 def test_decode_from_empty_caches_matches_reference(monkeypatch):
     """Decoding a prompt token by token from ``init_caches`` (mamba's
     zero states, attention's empty K/V) matches the reference."""
-    monkeypatch.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION",
-                       '{"impl": "xla_ref"}')
     jcfg, jtree, cfg, tree = _pair(torch.bfloat16)
     seen = _routing(monkeypatch)
     toks = np.random.default_rng(4).integers(
@@ -327,7 +324,7 @@ def test_decode_from_empty_caches_matches_reference(monkeypatch):
     assert caches["groups"][0]["l0"]["conv"].dtype == torch.bfloat16
     jc = jax_zoo.init_caches(jcfg, 2, 5)
     for t in range(5):
-        with jax.disable_jit():
+        with ref_op_by_op():
             jlg, jc = jax_zoo.decode_step(jcfg, jtree,
                                           jnp.asarray(toks[:, t:t + 1]), jc,
                                           jnp.int32(t))
@@ -438,8 +435,7 @@ def test_reference_misses_decode_consistency_at_width():
     P, n = 64, 4
     toks = np.random.default_rng(2).integers(
         0, jcfg.vocab_size, (2, P + n)).astype(np.int32)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("REPRO_TUNE_PIN_FLASH_ATTENTION", '{"impl": "xla_ref"}')
+    with ref_pinned():
         gaps = _ref_decode_gaps(jcfg, jtree, toks, P)
     print("the reference's decode-vs-forward gap a step:", gaps)
     assert len(gaps) == n + 1 and max(gaps) > BF16_ATOL, gaps
