@@ -123,7 +123,7 @@
    prefill, C = 1 at decode), (c) layer 1's MoE in the smap form
    against the dense one at a capacity that drops nothing, within 1e-2;
    (b)
-   minicpm3-4b, full width and all 62 MLA layers, on the continuous
+   minicpm3-4b, full width, cut to 31 of its 62 MLA layers, on the continuous
    engine: a burst of 8 batch-1 requests (1024 + 16) into 4 slots, each
    request's tokens bitwise a solo ``generate`` and the 4-slot step's
    logits bitwise four B = 1 steps'; (c) whisper-tiny, full config, at
@@ -132,9 +132,9 @@
    rtol 0.1), K7's full route launched at T = S = 1500, T = 448 and
    T = 1 against S = 1500, every launch held against its plain version,
    K7's rows at the three shapes beside SDPA.
-   Then the recurrent families: (d) xlstm-350m, full width and all 24
-   layers (21 mLSTM, 3 sLSTM; no kernel of the port: the reference
-   computes it in plain ``jnp``), greedy ``generate`` at 4 x 1024 + 16
+   Then the recurrent families: (d) xlstm-350m, full width, one of its
+   three 8-layer groups (7 mLSTM, 1 sLSTM; no kernel of the port: the
+   reference computes it in plain ``jnp``), greedy ``generate`` at 4 x 1024 + 16
    (prefill and step times, peak memory, the GPU's idle share in a
    profiled step and a profiled 4-slot step), the gap of 16
    teacher-forced decode steps to the forward's logits (printed: at
@@ -179,7 +179,16 @@
    reference's), each through a fresh ``Scheduler()`` on the real pair:
    p95 and goodput per SLO class, the counters, the trace digest, the
    accounting invariant, the chaos scenario's lane death, every
-   closed-loop request answered.
+   closed-loop request answered.  Then training (``train ...`` lines),
+   then the mesh tools, in four child processes started together:
+   ``launch/dryrun.py`` on whisper-tiny's decode_32k and
+   h2o-danube-1.8b's train_4k at full depth, ``launch/hillclimb.py``'s
+   probe of deepseek-v2-lite-16b's train_4k as the baseline and with
+   ``moe.shard_mode=smap``, all on the fake 16x16 mesh: each record and
+   wall time, CUDA uninitialised in every child, no launch and no
+   allocated byte in this process, the smap probe's all-to-all > 0,
+   the cells' roofline rows on the H100 SXM's data-sheet constants
+   beside the card's name and power limit, the phase <= 60 s.
 7. Table 2 phase: the port's ``table2_hybrid.run()``, all 13 Table-1
    workloads at both of the paper's ratios (10 and 3.9) on the
    simulated pair on the GPU (``force_simulated``), a cold pass (its
@@ -3445,6 +3454,9 @@ def lm_tuned_phase(torch, dev, cfg, params, flush):
 # ---------------------------------------------------------------------------
 FAM_DEEPSEEK, FAM_MINICPM, FAM_WHISPER = ("deepseek-v2-lite-16b",
                                           "minicpm3-4b", "whisper-tiny")
+# minicpm3-4b cut to the first half of its 62 MLA layers (every layer
+# is alike) to keep the whole run under its time limit on a loaded host
+MINICPM_LAYERS = 31
 # whisper's 30 s window: 1500 encoder frames; 448 decoder positions
 WHISPER_FRAMES, WHISPER_DEC = 1500, 448
 BF16_MODEL_TOL = dict(atol=0.25, rtol=0.1)   # tests/test_models.py's
@@ -3789,11 +3801,12 @@ def deepseek_mesh(torch, dev, cfg, params, prompt):
 
 
 def minicpm_phase(torch, np):
-    """(b) minicpm3-4b at full width and depth (62 MLA layers, query
-    LoRA, dense FFNs) on the continuous engine over the accel group: a
-    burst of batch-1 requests into the slot-batched step, each request's
-    tokens bitwise a solo ``generate``, the 4-slot step's logits bitwise
-    four B = 1 steps'.  Returns the burst's launch counts."""
+    """(b) minicpm3-4b at full width, cut to ``MINICPM_LAYERS`` of its
+    62 MLA layers (query LoRA, dense FFNs), on the continuous engine over
+    the accel group: a burst of batch-1 requests into the slot-batched
+    step, each request's tokens bitwise a solo ``generate``, the 4-slot
+    step's logits bitwise four B = 1 steps'.  Returns the burst's launch
+    counts."""
     from repro_torch.configs import registry
     from repro_torch.core.hybrid_executor import detect_platform
     from repro_torch.kernels import common
@@ -3804,7 +3817,7 @@ def minicpm_phase(torch, np):
     from repro_torch.workloads import requests as adapters
 
     dev = torch.device("cuda", 0)
-    cfg = registry.get(FAM_MINICPM)
+    cfg = registry.get(FAM_MINICPM).replace(n_layers=MINICPM_LAYERS)
     t0 = time.perf_counter()
     params = model_zoo.init(cfg, 0, device=dev)
     torch.cuda.synchronize()
@@ -4039,6 +4052,10 @@ FAM_XLSTM, FAM_JAMBA = "xlstm-350m", "jamba-1.5-large-398b"
 # MoE, mamba, mamba + MoE, attention + the dense MLP): a whole group
 # holds four MoE layers of 16 x 3 x 8192 x 24576, past 80 GB in bf16
 JAMBA_LAYERS = 5
+# xlstm-350m cut to one of its three 8-layer groups (7 mLSTM, 1 sLSTM)
+# to keep the whole run under its time limit once the mesh tools' phase
+# joined it; launch/serve.py --full below still serves all 24 layers
+XLSTM_LAYERS = 8
 
 
 def _decode_gap(torch, label, cfg, params, prompt, toks, pad_to=1):
@@ -4184,8 +4201,8 @@ def _small_decode(torch, dev):
 
 
 def xlstm_phase(torch, np):
-    """(d) xlstm-350m at full width and depth (21 mLSTM and 3 sLSTM
-    layers): greedy ``generate`` at 4 x 1024 + 16 (prefill and step
+    """(d) xlstm-350m at full width, one 8-layer group deep (7 mLSTM
+    and 1 sLSTM layers, ``XLSTM_LAYERS``): greedy ``generate`` at 4 x 1024 + 16 (prefill and step
     times, peak memory, a profiled step's GPU idle share), its decode
     steps' gap to the forward's logits (printed), the chunkwise and
     recurrent mLSTM forms against each other in f32 at its head shapes
@@ -4212,7 +4229,7 @@ def xlstm_phase(torch, np):
     from repro_torch.workloads import requests as adapters
 
     dev = torch.device("cuda", 0)
-    cfg = registry.get(FAM_XLSTM)
+    cfg = registry.get(FAM_XLSTM).replace(n_layers=XLSTM_LAYERS)
     t0 = time.perf_counter()
     params = model_zoo.init(cfg, 0, device=dev)
     torch.cuda.synchronize()
@@ -5361,6 +5378,119 @@ def train_phase(torch, np, dev):
     return counts, [row]
 
 
+# ---------------------------------------------------------------------------
+# the mesh tools: the dry-run, the probe, the hill-climb, the roofline
+# ---------------------------------------------------------------------------
+# (label, module, arguments): each a child process of its own
+MESH_TOOL_RUNS = (
+    ("dryrun whisper-tiny decode_32k", "repro_torch.launch.dryrun",
+     ["--arch", "whisper-tiny", "--shape", "decode_32k"]),
+    ("dryrun h2o-danube-1.8b train_4k", "repro_torch.launch.dryrun",
+     ["--arch", "h2o-danube-1.8b", "--shape", "train_4k"]),
+    ("hillclimb deepseek-v2-lite-16b train_4k baseline",
+     "repro_torch.launch.hillclimb",
+     ["--arch", "deepseek-v2-lite-16b", "--shape", "train_4k"]),
+    ("hillclimb deepseek-v2-lite-16b train_4k smap",
+     "repro_torch.launch.hillclimb",
+     ["--arch", "deepseek-v2-lite-16b", "--shape", "train_4k", "--set",
+      "moe.shard_mode=smap"]),
+)
+MESH_TOOLS_MAX_S = 60.0
+MESH_TOOLS_CHILD_TIMEOUT_S = 300
+
+
+def mesh_tools_phase(torch):
+    """The dry-run and the hill-climb's probe on the fake 16x16 mesh, in
+    child processes started together: whisper-tiny's decode_32k and
+    h2o-danube-1.8b's train_4k at full depth, deepseek-v2-lite-16b's
+    train_4k as the baseline and with the shard_map MoE.  Each child's
+    record and wall time; each reports CUDA uninitialised at its end,
+    and this process's allocated bytes and kernel launches do not move.
+    Then the roofline rows of those cells on the H100 SXM's data-sheet
+    constants.  Returns the phase's launch counts (all 0)."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.cost_model import h100_sxm_profile
+    from repro_torch.kernels import common
+
+    t0 = time.perf_counter()
+    common.reset_launches()
+    allocated = torch.cuda.memory_allocated()
+    out_dir = os.path.join(SRC, "repro_torch", "build", "mesh_tools")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = []
+    try:
+        for i, (label, module, args) in enumerate(MESH_TOOL_RUNS):
+            out = os.path.join(out_dir, f"{i}.jsonl")
+            log = open(os.path.join(out_dir, f"{i}.log"), "w")
+            procs.append((label, out, log, time.perf_counter(),
+                          subprocess.Popen(
+                              [sys.executable, "-m", module, *args, "--out",
+                               out], stdout=log, stderr=subprocess.STDOUT,
+                              env=env, cwd=ROOT)))
+        records = {}
+        for label, out, log, start, proc in procs:
+            rc = proc.wait(timeout=MESH_TOOLS_CHILD_TIMEOUT_S)
+            wall = time.perf_counter() - start
+            log.close()
+            with open(log.name) as f:
+                text = f.read()
+            with open(out) as f:
+                rec = json.loads(f.readlines()[-1])
+            shown = {k: v for k, v in rec.items() if k != "traceback"}
+            print(f"mesh tools {label}: wall_s={wall!r} rc={rc} "
+                  f"record={json.dumps(shown)}")
+            if rc != 0 or rec["status"] != "OK":
+                raise AssertionError(f"mesh tools {label}: rc={rc} "
+                                     f"status={rec['status']}: "
+                                     f"{rec.get('traceback', text[-2000:])}")
+            if "cuda initialized: False" not in text:
+                raise AssertionError(f"mesh tools {label}: the child did "
+                                     f"not report CUDA uninitialised")
+            records[label] = rec
+    finally:
+        for _, _, log, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    smap = records["hillclimb deepseek-v2-lite-16b train_4k smap"]
+    if not smap["coll_by_op"].get("all-to-all", 0) > 0:
+        raise AssertionError(f"mesh tools: the smap MoE's probe counts no "
+                             f"all-to-all: {smap['coll_by_op']}")
+    counts = common.launch_counts()
+    if any(counts.values()) or torch.cuda.memory_allocated() != allocated:
+        raise AssertionError(f"mesh tools: the card was used: launches "
+                             f"{counts}, allocated {allocated} -> "
+                             f"{torch.cuda.memory_allocated()}")
+    print(f"mesh tools: children report CUDA uninitialised; this "
+          f"process's allocated bytes {allocated} unchanged, launches "
+          f"{counts}")
+    # the roofline of each cell: the probe's totals, and a full-depth
+    # dry-run's numbers, which equal them
+    p = h100_sxm_profile()
+    print(f"mesh tools roofline: constants (data sheet, not measured) "
+          f"peak={p.matmul_flops!r} FLOP/s hbm={p.mem_bw!r} B/s "
+          f"link={p.link_bw!r} B/s chips={roofline.CHIPS} on {card_line()}")
+    for label, rec in records.items():
+        if "flops_total" not in rec:
+            rec = dict(rec, flops_total=rec["flops"],
+                       coll_total=rec["collective_total"],
+                       coll_by_op=rec["collective_bytes"])
+        cell = next(c for c in SHAPES if c.name == rec["shape"])
+        row = roofline.roofline_row(
+            rec["arch"], cell, {(rec["arch"], rec["shape"], "16x16"): rec})
+        print(f"mesh tools roofline {label}: {json.dumps(row)}")
+    wall = time.perf_counter() - t0
+    print(f"mesh tools: phase {wall:.1f} s", flush=True)
+    if wall > MESH_TOOLS_MAX_S:
+        raise AssertionError(f"mesh tools: phase {wall:.1f} s > "
+                             f"{MESH_TOOLS_MAX_S} s")
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "csrc")):
         fail("src/repro_torch/csrc not found beside this script: run it "
@@ -5445,6 +5575,9 @@ def main() -> None:
     # train -> serve, the route under autograd
     per_call["train"], train_rows = train_phase(torch, np, dev)
     rows += train_rows
+    # the mesh tools in child processes, which touch no card: the
+    # dry-run, the probe and the hill-climb on the fake 16x16 mesh
+    per_call["mesh tools"] = mesh_tools_phase(torch)
     # after the LM, so that the inputs these phases keep on the card
     # (montecarlo's 512 MB stream among them) stay out of its peak
     per_call["table2"] = table2_phase(torch)

@@ -10,15 +10,15 @@ Prints ``name,us_per_call,derived`` CSV rows:
   fig5/*     — Fig. 5 LR task assignment
   split_sweep/* — §5.4.3 work-split sweep, executed splits vs model
   kernels/*  — per-kernel microbenches (``kernels_bench``)
-
-The reference's ``roofline/*`` section (``benchmarks/roofline.py``) is
-built on its dry-run and probe tools, which come with the mesh and
-sharding slice of the port; it is not run here.
+  roofline/* — the 40 (arch x shape) cells' compute / memory /
+               collective terms on the H100 SXM's data-sheet constants
+               (``roofline``; the collective term reads the probe's
+               ``results/probe.jsonl`` where it exists, else 0)
 
 ``--json`` additionally writes machine-readable results into ``--out``
 (default: the current directory), never the reference's ``BENCH_*``
 files:
-  BENCH_torch_kernels.json  — kernels/*, cold_start/* rows
+  BENCH_torch_kernels.json  — kernels/*, roofline/*, cold_start/* rows
   BENCH_torch_hybrid.json   — table2/fig3/fig4/fig5/split_sweep rows
   BENCH_torch_history.jsonl — one timestamped line per kernel,
                               cold-start AND serving row per run, keyed
@@ -53,6 +53,7 @@ SECTIONS = {
     "fig5": ("hybrid", "fig5_tasks"),
     "split_sweep": ("hybrid", "split_sweep"),
     "kernels": ("kernels", "kernels_bench"),
+    "roofline": ("kernels", "roofline"),
 }
 
 

@@ -115,6 +115,28 @@ def static_profile(device) -> HardwareProfile:
                            host_bw=20e9, measured=False)
 
 
+def h100_sxm_profile() -> HardwareProfile:
+    """The H100 SXM5's data-sheet constants for the roofline of the
+    production mesh (``benchmarks.roofline``), the counterpart of the
+    reference's ``tpu_v5e_profile()``.  None of these is a measurement:
+
+      * ``matmul_flops`` 989.4e12 FLOP/s: dense BF16 tensor-core peak
+        (H100 SXM5 data sheet; 1979 TFLOP/s is the 2:4-sparse figure);
+      * ``ew_flops`` 67e12 op/s: FP32 on the CUDA cores (data sheet);
+      * ``mem_bw`` 3.35e12 B/s: HBM3 (data sheet);
+      * ``host_bw`` 64e9 B/s: PCIe Gen5 x16, one direction (the data
+        sheet's 128 GB/s counts both);
+      * ``link_bw`` 50e9 B/s per GPU: one 400 Gb/s NDR InfiniBand port a
+        GPU.  A 16-way mesh axis over 8-GPU NVLink nodes crosses nodes,
+        so its collectives run at the network's rate; NVLink 4's 450 GB/s
+        per direction (900 GB/s both) inside a node is not used here;
+      * ``dispatch_s`` 5e-6 s: a nominal launch cost, as in
+        ``static_profile``."""
+    return HardwareProfile(backend="torch:cuda", matmul_flops=989.4e12,
+                           ew_flops=67e12, mem_bw=3.35e12, dispatch_s=5e-6,
+                           host_bw=64e9, link_bw=50e9, measured=False)
+
+
 # ---------------------------------------------------------------------------
 # the dispatch probe kernel (K4)
 # ---------------------------------------------------------------------------

@@ -315,7 +315,9 @@ def differentiated(*tensors) -> bool:
 def check_cuda(name: str, *tensors: torch.Tensor,
                dtypes=None) -> torch.device:
     """Validate kernel inputs before their pointers leave Python: all
-    on one CUDA device, contiguous, and of the expected dtypes."""
+    on one CUDA device, contiguous, holding memory of their own, and of
+    the expected dtypes.  A tensor subclass that wraps others (a
+    DTensor: its pointer is 0) raises; its local tensor is the input."""
     dev = tensors[0].device
     for i, t in enumerate(tensors):
         if not t.is_cuda or t.device != dev:
@@ -323,6 +325,10 @@ def check_cuda(name: str, *tensors: torch.Tensor,
                              f"expected one CUDA device ({dev})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: input {i} is not contiguous")
+        if t.numel() and t.data_ptr() == 0:
+            raise ValueError(
+                f"{name}: input {i} ({type(t).__name__}) holds no memory "
+                f"of its own; pass its local tensor")
         if dtypes is not None and t.dtype != dtypes[i]:
             raise ValueError(f"{name}: input {i} has dtype {t.dtype}, "
                              f"expected {dtypes[i]}")

@@ -2,9 +2,10 @@
 
 ``gmm(x, w)`` resolves the best implementation for the operands' device
 and shape bucket via ``kernels/autotune.py``; pass ``config=`` to pin
-one.  ``gmm_model`` is what MoE layers call: it resolves its config
-with ``autotune.cached_or_default`` (a pin, else a tune-cache hit when
-the search is on, else the device's default; nothing is timed).  A
+one.  ``gmm_model`` is what MoE layers call: outside a mesh it resolves
+its config with ``autotune.cached_or_default`` (a pin, else a tune-cache
+hit when the search is on, else the device's default; nothing is
+timed), under one it runs the device's default.  A
 ``cuda`` config launches K8 on a CUDA tensor that autograd does not
 record and runs ``torch_einsum`` otherwise, as the reference's model
 path maps its kernel onto ``xla_einsum``, which has a VJP; with no pin
@@ -39,6 +40,7 @@ from repro_torch.kernels.common import differentiated
 from repro_torch.kernels.gmm.gmm import (WGMMA_ENTRY, entries, gmm_cuda,
                                          gmm_torch, route)
 from repro_torch.kernels.gmm.ref import gmm_ref
+from repro_torch.parallel.sharding import active_mesh
 
 DEFAULT_CONFIG: Config = {"impl": "cuda"}
 CPU_CONFIG: Config = {"impl": "torch_plain"}
@@ -113,13 +115,15 @@ def gmm_model(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     backward: a call that autograd records runs ``torch_einsum``, the
     reference's differentiable formulation, where the config names the
     kernel (or, with no pin and no hit, always), and so does a ``cuda``
-    config on a CPU tensor."""
+    config on a CPU tensor.  Under an active mesh no pin or hit is read
+    (the device's default runs), as the attention layers' ``_flash``."""
     E, C, D = x.shape
     recorded = differentiated(x, w)
     default = ({"impl": "torch_einsum"} if recorded else
                default_config(DEFAULT_CONFIG, CPU_CONFIG, x.device))
-    cfg = cached_or_default("gmm", shape_bucket(E, C, D, w.shape[2]),
-                            default, device=x.device)
+    cfg = (cached_or_default("gmm", shape_bucket(E, C, D, w.shape[2]),
+                             default, device=x.device)
+           if active_mesh() is None else default)
     if cfg.get("impl") == "cuda" and (recorded or x.device.type != "cuda"):
         cfg = {**cfg, "impl": "torch_einsum"}
     return _gmm_cfg(x, w, cfg)

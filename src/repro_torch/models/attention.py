@@ -38,7 +38,9 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        rms_norm_simple, softmax)
 from repro_torch.models.param import ones_init
-from repro_torch.parallel.sharding import active_mesh, shard_act
+from repro_torch.parallel.sharding import (active_mesh, local_blocks,
+                                           merge_heads, shard_act,
+                                           split_heads)
 
 
 def kv_repeat_for(cfg, tp_hint: int) -> int:
@@ -77,11 +79,10 @@ def _repeat_kv(k, v, kv_repeat: int):
 
 
 def _qkv(params, x, cfg, sin, cos, kv_repeat: int = 1):
-    B, T, _ = x.shape
     dh = cfg.head_dim_()
-    q = linear(params["wq"], x).reshape(B, T, cfg.n_heads, dh)
-    k = linear(params["wk"], x).reshape(B, T, cfg.n_kv_heads, dh)
-    v = linear(params["wv"], x).reshape(B, T, cfg.n_kv_heads, dh)
+    q = split_heads(linear(params["wq"], x), cfg.n_heads, dh)
+    k = split_heads(linear(params["wk"], x), cfg.n_kv_heads, dh)
+    v = split_heads(linear(params["wv"], x), cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
@@ -143,21 +144,34 @@ def _flash(cfg, causal: bool, q, k, v):
     return flash_ops.sdpa(q, k, v, causal=causal)
 
 
+def _core(cfg, causal: bool, q, k, v):
+    """Full-sequence attention of (B, T, H, dh) q against (B, S, Kv, dh)
+    k/v: ``_flash`` where it takes the call, else ``_sdpa``."""
+    out = _flash(cfg, causal, q, k, v)
+    if out is None:
+        T, S = q.shape[1], k.shape[1]
+        mask = (causal_mask(T, S, cfg.sliding_window, device=q.device)
+                if causal else None)
+        out = _sdpa(q, k, v, mask, cfg)
+    return out
+
+
+# (batch dim, head dim) of q, k, v and the attention's output, for
+# ``local_blocks``: under a mesh each rank attends its rows and heads
+_BH = (0, 2)
+
+
 def attention(params, x, cfg, *, sin=None, cos=None, kv_repeat: int = 1,
               causal: bool = True, make_cache_len: int = 0):
     """Full-sequence attention. Returns (y, cache_or_None); the cache
     holds ``n_kv_heads * kv_repeat`` heads."""
-    B, T, _ = x.shape
     q, k, v = _qkv(params, x, cfg, sin, cos, kv_repeat)
     q = shard_act(q, ("batch", None, "heads", None))
     k = shard_act(k, ("batch", "seq_kv", "heads", None))
     v = shard_act(v, ("batch", "seq_kv", "heads", None))
-    out = _flash(cfg, causal, q, k, v)
-    if out is None:
-        mask = (causal_mask(T, T, cfg.sliding_window, device=x.device)
-                if causal else None)
-        out = _sdpa(q, k, v, mask, cfg)
-    y = linear(params["wo"], out.reshape(B, T, -1))
+    out = local_blocks(lambda q, k, v: _core(cfg, causal, q, k, v),
+                       (q, k, v), (_BH, _BH, _BH), _BH)
+    y = linear(params["wo"], merge_heads(out))
     cache = None
     if make_cache_len:
         L = make_cache_len
@@ -165,8 +179,11 @@ def attention(params, x, cfg, *, sin=None, cos=None, kv_repeat: int = 1,
             L = min(L, cfg.sliding_window)
             k, v = k[:, -L:], v[:, -L:]
         pad = (0, 0, 0, 0, 0, L - k.shape[1])
-        cache = {"k": torch.nn.functional.pad(k, pad),
-                 "v": torch.nn.functional.pad(v, pad)}
+        kc, vc = local_blocks(
+            lambda k, v: (torch.nn.functional.pad(k, pad),
+                          torch.nn.functional.pad(v, pad)),
+            (k, v), (_BH, _BH), (_BH, _BH))
+        cache = {"k": kc, "v": vc}
     return y, cache
 
 
@@ -220,8 +237,11 @@ def attention_decode(params, x, cfg, cache, position, *, sin=None,
         valid = idx <= pos
     # (1 or B, 1, 1, 1, L): one mask for every row, or one a row
     mask = valid.reshape(-1, 1, 1, 1, L)
-    out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
-    y = linear(params["wo"], out.reshape(B, 1, -1))
+    out = local_blocks(lambda q, k, v, m: _sdpa(q, k, v, m, cfg),
+                       (q, cache["k"], cache["v"], mask),
+                       (_BH, _BH, _BH, (0 if mask.shape[0] > 1 else None,
+                                        None)), _BH)
+    y = linear(params["wo"], merge_heads(out))
     return y, cache
 
 
@@ -237,19 +257,16 @@ def cross_attention(params, x, enc_kv, cfg, kv_repeat: int = 1):
     encoder (``encode_cross_kv``, already repeated: ``kv_repeat`` is
     taken and unused, as in the reference).  No mask: every query sees
     every encoder frame."""
-    B, T, _ = x.shape
     dh = cfg.head_dim_()
-    q = linear(params["wq"], x).reshape(B, T, cfg.n_heads, dh)
-    out = _flash(cfg, False, q, enc_kv["k"], enc_kv["v"])
-    if out is None:
-        out = _sdpa(q, enc_kv["k"], enc_kv["v"], None, cfg)
-    return linear(params["wo"], out.reshape(B, T, -1))
+    q = split_heads(linear(params["wq"], x), cfg.n_heads, dh)
+    out = local_blocks(lambda q, k, v: _core(cfg, False, q, k, v),
+                       (q, enc_kv["k"], enc_kv["v"]), (_BH, _BH, _BH), _BH)
+    return linear(params["wo"], merge_heads(out))
 
 
 def encode_cross_kv(params, enc_out, cfg, kv_repeat: int = 1):
-    B, S, _ = enc_out.shape
     dh = cfg.head_dim_()
-    k = linear(params["wk"], enc_out).reshape(B, S, cfg.n_kv_heads, dh)
-    v = linear(params["wv"], enc_out).reshape(B, S, cfg.n_kv_heads, dh)
+    k = split_heads(linear(params["wk"], enc_out), cfg.n_kv_heads, dh)
+    v = split_heads(linear(params["wv"], enc_out), cfg.n_kv_heads, dh)
     k, v = _repeat_kv(k, v, kv_repeat)
     return {"k": k, "v": v}

@@ -33,6 +33,7 @@ policies keep what ``layers.checkpoint_name`` names as well:
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, Tuple
 
@@ -121,11 +122,12 @@ def init_layer_cache(cfg, kind: str, batch: int, max_len: int, device,
     raise ValueError(kind)
 
 
-def _residual(x, y, cfg, name):
-    """``x + y`` constrained to the residual's axes and named (the
-    full-sequence layer's two block boundaries)."""
+def _residual(x, y, cfg, name=None):
+    """``x + y`` constrained to the residual's axes, and named where
+    ``name`` is given (the full-sequence layer's two block
+    boundaries)."""
     seq_ax = "seq" if cfg.parallel.seq_parallel else None
-    with checkpoint_name(name):
+    with checkpoint_name(name) if name else contextlib.nullcontext():
         return shard_act(x + y, ("batch", seq_ax, "embed"))
 
 
@@ -137,7 +139,7 @@ def _ffn(params, x, cfg, use_moe: bool, boundary: bool = False):
             y, aux = moe_mod.moe_ffn(params["ffn"], h, cfg)
         else:
             y = mlp(params["ffn"], h, cfg)
-        x = _residual(x, y, cfg, "blk_ffn_out") if boundary else x + y
+        x = _residual(x, y, cfg, "blk_ffn_out" if boundary else None)
     return x, aux
 
 
@@ -193,7 +195,7 @@ def apply_layer_decode(params, x, cfg, kind: str, use_moe: bool, cache,
                                          per_row=per_row)
     else:
         raise ValueError(kind)
-    x, aux = _ffn(params, x + y, cfg, use_moe)
+    x, aux = _ffn(params, _residual(x, y, cfg), cfg, use_moe)
     return x, cache, aux
 
 

@@ -73,10 +73,17 @@ def encode(params, frames, cfg, *, tp: int = 1):
         h = norm(lp["norm1"], x, cfg)
         y, _ = attn_mod.attention(lp["attn"], h, cfg, causal=False,
                                   kv_repeat=kv_rep)
-        x = x + y
+        x = _res(x + y)
         x = x + mlp(lp["mlp"], norm(lp["norm2"], x, cfg), cfg)
         x = shard_act(x, ("batch", None, "embed"))
     return norm(params["enc_norm"], x, cfg)
+
+
+def _res(x):
+    """The residual stream constrained to its axes between sublayers
+    (a no-op without a mesh; under one it keeps DTensor from choosing
+    another layout for the stream)."""
+    return shard_act(x, ("batch", None, "embed"))
 
 
 def _dec_layer(lp, x, enc_kv, cfg, kv_rep, make_cache_len=0):
@@ -84,10 +91,10 @@ def _dec_layer(lp, x, enc_kv, cfg, kv_rep, make_cache_len=0):
     y, new_cache = attn_mod.attention(lp["self_attn"], h, cfg,
                                       kv_repeat=kv_rep,
                                       make_cache_len=make_cache_len)
-    x = x + y
+    x = _res(x + y)
     h = norm(lp["norm2"], x, cfg)
-    x = x + attn_mod.cross_attention(lp["cross_attn"], h, enc_kv, cfg)
-    x = x + mlp(lp["mlp"], norm(lp["norm3"], x, cfg), cfg)
+    x = _res(x + attn_mod.cross_attention(lp["cross_attn"], h, enc_kv, cfg))
+    x = _res(x + mlp(lp["mlp"], norm(lp["norm3"], x, cfg), cfg))
     return x, new_cache
 
 
@@ -109,6 +116,7 @@ def decode_train(params, enc_out, dec_tokens, cfg, *, tp: int = 1,
         caches.append(cache)
     x = norm(params["dec_norm"], x, cfg)
     logits = unembed(params["unembed"], x, cfg)
+    logits = shard_act(logits, ("batch", None, "vocab"))
     return logits, (caches if make_cache_len else None)
 
 
@@ -131,17 +139,18 @@ def decode_step(params, token, cfg, caches, position: int, *, tp: int = 1):
     self-attention caches are updated in place."""
     kv_rep = attn_mod.kv_repeat_for(cfg, tp)
     x = embed(params["dec_embed"], token, cfg)
-    x = x + sinusoid_pos(1, cfg.d_model, offset=position,
-                         device=x.device).to(x.dtype)
+    x = _res(x + sinusoid_pos(1, cfg.d_model, offset=position,
+                              device=x.device).to(x.dtype))
     for lp, self_c, cross_kv in zip(params["dec_layers"], caches["self"],
                                     caches["cross"]):
         h = norm(lp["norm1"], x, cfg)
         y, _ = attn_mod.attention_decode(lp["self_attn"], h, cfg, self_c,
                                          position, kv_repeat=kv_rep)
-        x = x + y
+        x = _res(x + y)
         h = norm(lp["norm2"], x, cfg)
-        x = x + attn_mod.cross_attention(lp["cross_attn"], h, cross_kv, cfg)
-        x = x + mlp(lp["mlp"], norm(lp["norm3"], x, cfg), cfg)
+        x = _res(x + attn_mod.cross_attention(lp["cross_attn"], h, cross_kv,
+                                              cfg))
+        x = _res(x + mlp(lp["mlp"], norm(lp["norm3"], x, cfg), cfg))
     x = norm(params["dec_norm"], x, cfg)
     logits = unembed(params["unembed"], x, cfg)
     return logits, caches

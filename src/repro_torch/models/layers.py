@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.param import (dense_init, embed_init, ones_init,
                                       zeros_init)
-from repro_torch.parallel.sharding import shard_act
+from repro_torch.parallel.sharding import (row_local, shard_act,
+                                           vocab_parallel_embed)
 
 def _silu(x):
     # jax.nn.silu's formula, one rounding per op in the input's type
@@ -73,6 +74,12 @@ def init_norm(cfg, device, dim: int = 0):
 
 
 def _mean_last(x):
+    """Mean over the last dim (keepdim), row by row (``_mean_rows``); a
+    DTensor's rows on its local block (``row_local``)."""
+    return row_local(_mean_rows, x)
+
+
+def _mean_rows(x):
     """Mean over the last dim (keepdim) in two fixed stages: the sums of
     64-wide slices, then their sum (the dim zero-padded to a multiple of
     256).  A row's mean is then the same bits in a tensor of any number
@@ -164,7 +171,8 @@ def init_embedding(gen, cfg, dtype):
 
 
 def embed(params, token_ids, cfg):
-    return params["table"].to(torch.bfloat16)[token_ids]
+    return vocab_parallel_embed(params["table"].to(torch.bfloat16),
+                                token_ids)
 
 
 def init_unembed(gen, cfg, dtype):

@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        rms_norm_simple, softmax)
 from repro_torch.models.param import ones_init
-from repro_torch.parallel.sharding import shard_act
+from repro_torch.parallel.sharding import (local_blocks, merge_heads,
+                                           shard_act, split_heads)
 
 
 def _dims(cfg):
@@ -55,14 +56,13 @@ def init_mla(gen, cfg, dtype):
 
 def _queries(params, x, cfg, sin, cos):
     dn, dr, _, _ = _dims(cfg)
-    B, T, _ = x.shape
     if cfg.mla.q_lora_rank:
         ql = rms_norm_simple(linear(params["wq_a"], x), params["q_norm"],
                              cfg.norm_eps)
         q = linear(params["wq_b"], ql)
     else:
         q = linear(params["wq"], x)
-    q = q.reshape(B, T, cfg.n_heads, dn + dr)
+    q = split_heads(q, cfg.n_heads, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, apply_rope(q_rope, sin, cos)
 
@@ -83,6 +83,24 @@ def _weights(s, mask, dtype):
     return softmax(s).to(dtype)
 
 
+# (batch dim, head dim) of the attention's operands for ``local_blocks``:
+# under a mesh each rank attends its rows and heads
+_BH, _B, _H = (0, 2), (0, None), (None, 1)
+
+
+def _naive(q_nope, q_rope, k_nope, k_rope, v, scale):
+    """The expanded form's causal attention: (B, T, H, dv) from
+    (B, T, H, dn/dr) queries, (B, S, H, dn) keys, the shared (B, S, dr)
+    rope key and (B, S, H, dv) values."""
+    s = (torch.einsum("bthd,bshd->bhts", q_nope.float(), k_nope.float())
+         + torch.einsum("bthd,bsd->bhts", q_rope.float(), k_rope.float())
+         ) * scale
+    t = torch.arange(q_nope.shape[1], device=q_nope.device)
+    mask = t[None, :] <= t[:, None]
+    w = _weights(s, mask[None, None], v.dtype)
+    return torch.einsum("bhts,bshd->bthd", w, v)
+
+
 def mla_attention(params, x, cfg, *, sin=None, cos=None,
                   make_cache_len: int = 0, kv_repeat: int = 1):
     """Naive (expanded) MLA for train/prefill. Returns (y, cache); the
@@ -90,26 +108,23 @@ def mla_attention(params, x, cfg, *, sin=None, cos=None,
     ``kv_repeat`` is taken and unused, as in the reference: the latent
     cache has no KV heads to repeat."""
     dn, dr, dv, _ = _dims(cfg)
-    B, T, _ = x.shape
-    H = cfg.n_heads
+    T, H = x.shape[1], cfg.n_heads
     q_nope, q_rope = _queries(params, x, cfg, sin, cos)
     c_kv, k_rope = _latent_kv(params, x, cfg, sin, cos)
-    kv = linear(params["wkv_b"], c_kv).reshape(B, T, H, dn + dv)
+    kv = split_heads(linear(params["wkv_b"], c_kv), H, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
 
     scale = (dn + dr) ** -0.5
-    s = (torch.einsum("bthd,bshd->bhts", q_nope.float(), k_nope.float())
-         + torch.einsum("bthd,bsd->bhts", q_rope.float(), k_rope.float())
-         ) * scale
-    t = torch.arange(T, device=x.device)
-    mask = t[None, :] <= t[:, None]
-    w = _weights(s, mask[None, None], x.dtype)
-    out = torch.einsum("bhts,bshd->bthd", w, v).reshape(B, T, H * dv)
-    y = linear(params["wo"], out)
+    out = local_blocks(
+        lambda *a: _naive(*a, scale), (q_nope, q_rope, k_nope, k_rope, v),
+        (_BH, _BH, _BH, _B, _BH), _BH)
+    y = linear(params["wo"], merge_heads(out))
     cache = None
     if make_cache_len:
         pad = (0, 0, 0, make_cache_len - T)
-        cache = {"ckv": F.pad(c_kv, pad), "kr": F.pad(k_rope, pad)}
+        ckv, kr = local_blocks(lambda c, r: (F.pad(c, pad), F.pad(r, pad)),
+                               (c_kv, k_rope), (_B, _B), (_B, _B))
+        cache = {"ckv": ckv, "kr": kr}
     return y, cache
 
 
@@ -160,7 +175,7 @@ def mla_decode(params, x, cfg, cache, position, *, sin=None, cos=None,
     ckv, kr = cache["ckv"], cache["kr"]
     L = ckv.shape[1]
     idx = torch.arange(L, device=x.device)
-    wkv_b = params["wkv_b"]["w"].to(x.dtype).reshape(kvl, H, dn + dv)
+    wkv_b = split_heads(params["wkv_b"]["w"].to(x.dtype), H, dn + dv)
     wk, wv = wkv_b[..., :dn], wkv_b[..., dn:]
     scale = (dn + dr) ** -0.5
     if isinstance(position, int):
@@ -174,13 +189,15 @@ def mla_decode(params, x, cfg, cache, position, *, sin=None, cos=None,
     ckv = shard_act(ckv, ("batch", "seq_kv", None))
     if isinstance(position, int):
         valid = (idx <= position).reshape(1, 1, 1, L)
-        out = _absorbed(q_nope, q_rope, ckv, kr, valid, wk, wv, scale,
-                        x.dtype)
+        out = local_blocks(
+            lambda *a: _absorbed(*a, scale, x.dtype),
+            (q_nope, q_rope, ckv, kr, valid, wk, wv),
+            (_BH, _BH, _B, _B, (None, None), _H, _H), _BH)
     else:
         valid = (idx[None, :] <= pos[:, None]).reshape(B, 1, 1, L)
         out = torch.cat([
             _absorbed(q_nope[b:b + 1], q_rope[b:b + 1], ckv[b:b + 1],
                       kr[b:b + 1], valid[b:b + 1], wk, wv, scale, x.dtype)
             for b in range(B)])
-    y = linear(params["wo"], out.reshape(B, T, H * dv))
+    y = linear(params["wo"], merge_heads(out))
     return y, cache

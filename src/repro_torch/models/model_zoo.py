@@ -111,8 +111,18 @@ def decode_step(cfg: ArchConfig, params, token, caches, position, *,
 # ---------------------------------------------------------------------------
 # Shape stand-ins for the sharding rules and the dry-run (no allocation)
 # ---------------------------------------------------------------------------
-def _fake_mode():
+def fake_mode():
+    """The fake mode stand-ins are made in, as a context: the active one
+    where one is active (so that ``param_specs`` and ``input_specs``
+    called inside one ``with fake_mode():`` go into one step together),
+    else a new one."""
+    import contextlib
+
+    from torch._guards import detect_fake_mode
     from torch._subclasses.fake_tensor import FakeTensorMode
+    active = detect_fake_mode()
+    if active is not None:
+        return contextlib.nullcontext(active)
     return FakeTensorMode()
 
 
@@ -125,7 +135,7 @@ def input_specs(cfg: ArchConfig, cell: ShapeCell, *, tp: int = 1
     ``tp``; an encoder-decoder's holds its encoder's cross K/V)."""
     B, T = cell.global_batch, cell.seq_len
     i32, bf16 = torch.int32, torch.bfloat16
-    with _fake_mode():
+    with fake_mode():
         def sds(shape, dtype):
             return torch.empty(shape, dtype=dtype)
 
@@ -155,7 +165,7 @@ def param_specs(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16):
     """(values, axes): stand-ins of ``init(cfg, dtype=dtype)``'s tree and
     the matching tree of logical-axes tuples (the reference's axes of
     each leaf without the stacked ``"layers"`` axis)."""
-    with _fake_mode(), param_mod.recording_axes():
+    with fake_mode(), param_mod.recording_axes():
         vals = init(cfg, 0, device="cpu", dtype=dtype)
         axes = param_mod.axes_of(vals)
     return vals, axes

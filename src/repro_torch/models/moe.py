@@ -26,7 +26,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.models.layers import ACTS, init_linear, linear, softmax
 from repro_torch.models.param import dense_init
-from repro_torch.parallel.sharding import active_mesh, shard_act
+from repro_torch.parallel.sharding import (active_mesh, grouped_blocks,
+                                           local_blocks, shard_act)
 
 
 def init_moe(gen, cfg, dtype):
@@ -83,6 +84,36 @@ def _dispatch_onehot(flat_expert: torch.Tensor, E: int):
     return flat_expert, pos
 
 
+def _scatter(x_sorted, sorted_e, pos, C: int, E: int):
+    """Pack (B, Nk, d) assignments into the (E, B*C, d) capacity buffer:
+    group b's slots are rows b*C .. b*C + C-1 of every expert.  Returns
+    (buffer, expert row, slot row, kept); assignments with pos >= C are
+    not packed (later passes take them)."""
+    B, Nk, d = x_sorted.shape
+    keep = pos < C
+    e_idx = torch.where(keep, sorted_e, E)      # E == drop row
+    rows = (torch.arange(B, device=pos.device)[:, None] * C
+            + torch.where(keep, pos, 0))
+    buf = torch.zeros((E + 1, B * C, d), dtype=x_sorted.dtype,
+                      device=x_sorted.device)
+    buf[e_idx, rows] = x_sorted
+    return buf[:E], e_idx, rows, keep
+
+
+def _unpack(out, e_idx, rows, keep, E: int):
+    """Each assignment's row of the (E, B*C, d) expert outputs, zeros
+    where it was not packed: (B, Nk, d)."""
+    # the drop row E is no row of ``out``: gather row E-1 there, then zero
+    gathered = out[e_idx.clamp(max=E - 1), rows]
+    return torch.where(keep[..., None], gathered, 0.0)
+
+
+# (batch dim, head dim) of the MoE's per-row tensors and of the capacity
+# buffer (rows b*C .. of every expert) for ``local_blocks``: under a mesh
+# routing, packing and unpacking stay on each rank's rows
+_B, _ROWS = (0, None), (1, None)
+
+
 def _one_pass(x_sorted, weights, sorted_e, pos, C: int, E: int, cfg):
     """Scatter -> grouped matmul -> gather for one capacity pass.
 
@@ -90,30 +121,26 @@ def _one_pass(x_sorted, weights, sorted_e, pos, C: int, E: int, cfg):
     Returns per-assignment outputs (B, Nk, d); assignments with
     pos >= C contribute zeros (handled by later passes).
     """
-    B, Nk, d = x_sorted.shape
     act = ACTS[cfg.act]
-    keep = pos < C
-    e_idx = torch.where(keep, sorted_e, E)      # E == drop row
-    # group b's slots are rows b*C .. b*C + C-1 of every expert
-    rows = (torch.arange(B, device=pos.device)[:, None] * C
-            + torch.where(keep, pos, 0))
-    buf = torch.zeros((E + 1, B * C, d), dtype=x_sorted.dtype,
-                      device=x_sorted.device)
-    buf[e_idx, rows] = x_sorted
-    buf = buf[:E]
+    buf, e_idx, rows, keep = local_blocks(
+        lambda *a: _scatter(*a, C, E), (x_sorted, sorted_e, pos),
+        (_B, _B, _B), (_ROWS, _B, _B, _B))
     if cfg.moe.shard_dispatch:
         # keep the dispatch buffer expert-sharded end to end (§Perf)
         buf = shard_act(buf, ("expert", None, None))
-    # grouped matmul (dense path — the "dense rows"), K8 on the GPU
-    h = gmm_ops.gmm_model(buf, weights["w_up"].to(buf.dtype))
-    g = gmm_ops.gmm_model(buf, weights["w_gate"].to(buf.dtype))
+    # grouped matmul (dense path — the "dense rows"), K8 on the GPU; under
+    # a mesh on each rank's blocks
+    h = grouped_blocks(gmm_ops.gmm_model, buf,
+                       weights["w_up"].to(buf.dtype))
+    g = grouped_blocks(gmm_ops.gmm_model, buf,
+                       weights["w_gate"].to(buf.dtype))
     h = h * act(g)
-    out = gmm_ops.gmm_model(h, weights["w_down"].to(buf.dtype))
+    out = grouped_blocks(gmm_ops.gmm_model, h,
+                         weights["w_down"].to(buf.dtype))
     if cfg.moe.shard_dispatch:
         out = shard_act(out, ("expert", None, None))
-    # the drop row E is no row of ``out``: gather row E-1 there, then zero
-    gathered = out[e_idx.clamp(max=E - 1), rows]  # (B, Nk, d)
-    return torch.where(keep[..., None], gathered, 0.0)
+    return local_blocks(lambda *a: _unpack(*a, E), (out, e_idx, rows, keep),
+                        (_ROWS, _B, _B, _B), _B)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -123,35 +150,57 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _route(x, router, cfg):
+    """Per-row routing of (B, T, d) tokens: (gates (B, T, k), router
+    probabilities (B, T, E), each token's expert counts (B, T, E), expert
+    id and position-in-expert of each of the T*k assignments, their
+    features in dispatch order (B, T*k, d), the dispatch order or None)."""
+    m = cfg.moe
+    B, T, d = x.shape
+    E, k = m.n_routed, m.top_k
+    logits = linear({"w": router}, x).float()                   # (B,T,E)
+    probs = softmax(logits)
+    gate_vals, topk_idx = _top_k(probs, k)                      # (B,T,k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    counts = F.one_hot(topk_idx, E).float().sum(dim=2)
+    flat_e = topk_idx.reshape(B, T * k)
+    xk = x.repeat_interleave(k, dim=1)          # (B, T*k, d) per assignment
+    if m.dispatch == "onehot":
+        # sort-free dispatch (§Perf optimized path)
+        e_ids, pos = _dispatch_onehot(flat_e, E)
+        return gate_vals, probs, counts, e_ids, pos, xk, None
+    order, e_ids, pos = _dispatch_indices(flat_e, E)
+    x_in = torch.gather(xk, 1, order[..., None].expand(-1, -1, d))
+    return gate_vals, probs, counts, e_ids, pos, x_in, order
+
+
+def _unsort(y_out, order):
+    inv = torch.argsort(order, dim=-1)
+    return torch.gather(y_out, 1, inv[..., None].expand(-1, -1,
+                                                         y_out.shape[-1]))
+
+
 def moe_ffn(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d). Returns (y, aux_loss)."""
+    """x: (B, T, d). Returns (y, aux_loss).  Under a mesh the routing, the
+    packing of the capacity buffers and their unpacking run on each
+    rank's batch rows (``local_blocks``) and the grouped matmuls on each
+    rank's experts and columns (``grouped_blocks``)."""
     m = cfg.moe
     if m.shard_mode == "smap" and active_mesh() is not None:
         from repro_torch.models.moe_shard_map import moe_ffn_shard_map
         return moe_ffn_shard_map(params, x, cfg)
     B, T, d = x.shape
     E, k = m.n_routed, m.top_k
-    logits = linear(params["router"], x).float()                # (B,T,E)
-    probs = softmax(logits)
-    gate_vals, topk_idx = _top_k(probs, k)                      # (B,T,k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    gate_vals, probs, counts, e_ids, pos, x_in, order = local_blocks(
+        lambda x, r: _route(x, r, cfg), (x, params["router"]["w"]),
+        (_B, (None, None)), (_B,) * 7)
 
     # ---- load-balancing aux loss (Switch-style) ----
     me = probs.mean(dim=(0, 1))                                     # (E,)
-    one_hot = F.one_hot(topk_idx, E).float()
-    ce = one_hot.sum(dim=2).mean(dim=(0, 1)) / k                    # (E,)
+    ce = counts.mean(dim=(0, 1)) / k                                # (E,)
     aux = m.aux_loss_coef * E * torch.sum(me * ce)
 
     C = max(1, int(T * k / E * m.capacity_factor))
-    flat_e = topk_idx.reshape(B, T * k)
-    xk = x.repeat_interleave(k, dim=1)          # (B, T*k, d) per assignment
-    if m.dispatch == "onehot":
-        # sort-free dispatch (§Perf optimized path)
-        e_ids, pos = _dispatch_onehot(flat_e, E)
-        x_in = xk
-    else:
-        order, e_ids, pos = _dispatch_indices(flat_e, E)
-        x_in = torch.gather(xk, 1, order[..., None].expand(-1, -1, d))
     y_out = _one_pass(x_in, params, e_ids, pos, C, E, cfg)
     # ---- the sparse tail: re-dispatch overflow at C_tail ----
     for p_ in range(m.overflow_passes):
@@ -160,9 +209,8 @@ def moe_ffn(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         y_out = y_out + _one_pass(
             x_in, params, e_ids,
             torch.where(pos_t >= 0, pos_t, C_tail), C_tail, E, cfg)
-    if m.dispatch != "onehot":
-        inv = torch.argsort(order, dim=-1)      # un-sort
-        y_out = torch.gather(y_out, 1, inv[..., None].expand(-1, -1, d))
+    if order is not None:
+        y_out = local_blocks(_unsort, (y_out, order), (_B, _B), _B)
     y_flat = y_out.reshape(B, T, k, d)
     y = torch.sum(y_flat * gate_vals[..., None].to(y_flat.dtype), dim=2)
     y = shard_act(y, ("batch", None, None))

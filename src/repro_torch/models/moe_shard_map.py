@@ -23,7 +23,8 @@ them and the backward re-runs no all_to_all.
 
 A parameter is its full (replicated) value and this rank takes its
 block of it, as ``shard_map``'s ``in_specs`` do; ``x`` and the output
-are this rank's batch shard.
+are this rank's batch shard.  DTensor parameters and ``x`` (the
+dry-run's) are brought to those layouts and their local blocks taken.
 """
 from __future__ import annotations
 
@@ -32,12 +33,13 @@ from typing import Tuple
 import torch
 import torch.distributed._functional_collectives as fc
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.models.layers import ACTS, checkpoint_name, softmax
 from repro_torch.models.moe import _dispatch_indices, _dispatch_onehot, _top_k
 from repro_torch.parallel.sharding import (PartitionSpec as P, active_mesh,
-                                           mesh_axis_names)
+                                           mesh_axis_names, placements)
 
 
 def _block(t, spec: P, mesh):
@@ -175,6 +177,23 @@ def moe_ffn_shard_map(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     def local(p, s):
         if isinstance(s, dict):
             return {key: local(p[key], s[key]) for key in s}
+        if isinstance(p, DTensor):
+            # every rank computes on other rows or another FFN slice, so
+            # a block whole over a mesh dim gets a partial sum there as
+            # its gradient (the psum of shard_map's transpose)
+            pl = placements(s, mesh)
+            return p.redistribute(mesh, pl).to_local(grad_placements=[
+                q if q.is_shard() else Partial() for q in pl])
         return _block(p, s, mesh)
 
-    return _local_moe(local(params, pspec), x, cfg, mesh)
+    if not isinstance(x, DTensor):
+        return _local_moe(local(params, pspec), x, cfg, mesh)
+    # a DTensor ``x`` (the dry-run's): its batch shard, the output laid
+    # out as it is and the aux loss (the same on every rank) replicated
+    rows = placements(P(tuple(a for a in mesh_axis_names(mesh)
+                              if a in ("pod", "data"))), mesh)
+    y, aux = _local_moe(local(params, pspec),
+                        x.redistribute(mesh, rows).to_local(), cfg, mesh)
+    return (DTensor.from_local(y, mesh, rows, run_check=False),
+            DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False))

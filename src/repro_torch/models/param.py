@@ -23,6 +23,7 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.tree import leaves as tree_leaves
 
@@ -83,6 +84,9 @@ def axes_of(values):
 def _normal(gen: torch.Generator, shape: Tuple[int, ...], dtype,
             std: float) -> torch.Tensor:
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if is_fake(out):
+        # a stand-in (``model_zoo.param_specs``) holds no values to draw
+        return out
     rows = out.view(shape[0], -1)
     step = max(1, _CHUNK // max(rows.shape[1], 1))
     for lo in range(0, shape[0], step):

@@ -21,7 +21,7 @@ from repro_torch.models.layers import (ACTS, conv_step, copy_state,
                                        softplus)
 from repro_torch.models.param import (dense_init, note_axes, ones_init,
                                       zeros_init)
-from repro_torch.parallel.sharding import shard_act
+from repro_torch.parallel.sharding import local_blocks, shard_act
 
 _silu = ACTS["silu"]
 
@@ -60,7 +60,9 @@ def init_mamba(gen, cfg, dtype):
 def _ssm_params(params, u, cfg):
     """u: (B, T, d_inner) -> (dt, B_mat, C_mat) data-dependent params."""
     _, d_state, _, dt_rank = _dims(cfg)
-    xdbc = linear(params["x_proj"], u)
+    # under a mesh the inner dim's partial sums are summed here, once,
+    # on the small (B, T, dt_rank + 2 d_state) product
+    xdbc = shard_act(linear(params["x_proj"], u), ("batch", None, None))
     dt = xdbc[..., :dt_rank]
     Bm = xdbc[..., dt_rank:dt_rank + d_state]
     Cm = xdbc[..., dt_rank + d_state:]
@@ -70,11 +72,16 @@ def _ssm_params(params, u, cfg):
 
 def _conv_full(params, x, cfg):
     """Causal depthwise conv over time. x: (B, T, d_inner)."""
-    _, _, d_conv, _ = _dims(cfg)
-    w = params["conv_w"].to(x.dtype)                        # (K, d_inner)
+    return local_blocks(_conv_rows, (x, params["conv_w"], params["conv_b"]),
+                        ((0, 2), (None, 1), (None, 0)), (0, 2))
+
+
+def _conv_rows(x, w, b):
+    d_conv = w.shape[0]
+    w = w.to(x.dtype)                                       # (K, d_inner)
     pad = F.pad(x, (0, 0, d_conv - 1, 0))
     out = sum(pad[:, i:i + x.shape[1]] * w[i] for i in range(d_conv))
-    return out + params["conv_b"].to(x.dtype)
+    return out + b.to(x.dtype)
 
 
 def _readout(h, C, per_row: bool):
@@ -82,6 +89,16 @@ def _readout(h, C, per_row: bool):
     if per_row:
         return rowwise(lambda a, b: torch.einsum("bds,bs->bd", a, b), h, C)
     return torch.einsum("bds,bs->bd", h, C)
+
+
+def _scan(dA, dBu, Cf, h):
+    """The selective scan over T from state ``h``: (y (B,T,di) f32, the
+    last state)."""
+    ys = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBu[:, t]                        # (B,di,ds)
+        ys.append(_readout(h, Cf[:, t], False))
+    return torch.stack(ys, dim=1), h
 
 
 def mamba(params, x, cfg, *, make_cache: bool = False):
@@ -101,12 +118,12 @@ def mamba(params, x, cfg, *, make_cache: bool = False):
 
     h = torch.zeros((B_, d_inner, d_state), dtype=torch.float32,
                     device=x.device)
-    ys = []
-    for t in range(T):
-        h = dA[:, t] * h + dBu[:, t]                        # (B,di,ds)
-        ys.append(_readout(h, Cf[:, t], False))
+    # under a mesh each rank scans its rows and channels
+    y, h = local_blocks(_scan, (dA, dBu, Cf, h),
+                        ((0, 2), (0, 2), (0, None), (0, 1)),
+                        ((0, 2), (0, 1)))
     del dA, dBu
-    y = torch.stack(ys, dim=1).to(x.dtype)                  # (B,T,di)
+    y = y.to(x.dtype)                                       # (B,T,di)
     y = y + u * params["D"].to(x.dtype)
     y = y * _silu(z)
     out = linear(params["out_proj"], y)

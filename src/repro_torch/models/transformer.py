@@ -75,6 +75,7 @@ def lm_decode_step(params, inputs, cfg, caches, position, *, tp: int = 1):
 
     Returns (logits (B, 1, V), caches); the caches are updated in place."""
     x = _inputs_to_h(params, inputs, cfg).to(torch.bfloat16)
+    x = shard_act(x, ("batch", None, "embed"))
     sin = cos = None
     if _has_attn(cfg):
         dim = _rope_dim(cfg)

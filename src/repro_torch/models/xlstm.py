@@ -24,7 +24,8 @@ from repro_torch.models.layers import (ACTS, _mean_last, conv_step,
                                        copy_state, init_linear, linear,
                                        log_sigmoid, rowwise)
 from repro_torch.models.param import dense_init, ones_init, zeros_init
-from repro_torch.parallel.sharding import shard_act
+from repro_torch.parallel.sharding import (local_blocks, merge_heads,
+                                           shard_act, split_heads)
 
 NEG = -1e30
 _silu = ACTS["silu"]
@@ -174,6 +175,13 @@ def init_mlstm_block(gen, cfg, dtype):
 
 
 def _causal_conv(x, w, b):
+    """Causal depthwise conv over time of (B, T, d) ``x``; under a mesh
+    on each rank's rows and channels (``local_blocks``)."""
+    return local_blocks(_causal_conv_rows, (x, w, b),
+                        ((0, 2), (None, 1), (None, 0)), (0, 2))
+
+
+def _causal_conv_rows(x, w, b):
     K = w.shape[0]
     pad = F.pad(x, (0, 0, K - 1, 0))
     w = w.to(x.dtype)
@@ -185,12 +193,24 @@ def _group_norm(h, scale, nh, eps=1e-6):
     """Per-head group norm. h: (B,T,nh,dh) -> (B,T,nh*dh).  The means
     sum in ``_mean_last``'s two fixed stages: a row's bits do not depend
     on the batch's row count."""
-    B, T, _, dh = h.shape
     hf = h.float()
     mu = _mean_last(hf)
     var = _mean_last(torch.square(hf - mu))
     hn = (hf - mu) * torch.rsqrt(var + eps)
-    return (hn.reshape(B, T, -1) * scale.float()).to(h.dtype)
+    return (merge_heads(hn) * scale.float()).to(h.dtype)
+
+
+# (batch dim, head dim) of the cells' operands for ``local_blocks``:
+# under a mesh each rank runs the recurrence over its rows and heads
+_BH = (0, 2)
+_CELL_IN = (_BH,) * 5                     # q, k, v (B,T,nh,dh); li, lf
+_STATE = ((0, 1),) * 3                    # (C, n, m): (B, nh, ...)
+
+
+def _flat(out):
+    """(h, (C, n, m)) -> (h, C, n, m)."""
+    h, state = out
+    return (h, *state)
 
 
 def mlstm_block(params, x, cfg, *, make_cache: bool = False,
@@ -209,9 +229,9 @@ def mlstm_block(params, x, cfg, *, make_cache: bool = False,
     else:
         xc = _silu(_causal_conv(xm, params["conv_w"], params["conv_b"]))
         xc = shard_act(xc, ("batch", None, "inner"))
-    q = linear(params["wq"], xc).reshape(B, T, nh, dh)
-    k = linear(params["wk"], xc).reshape(B, T, nh, dh)
-    v = linear(params["wv"], xm).reshape(B, T, nh, dh)
+    q = split_heads(linear(params["wq"], xc), nh, dh)
+    k = split_heads(linear(params["wk"], xc), nh, dh)
+    v = split_heads(linear(params["wv"], xm), nh, dh)
     # the gates' projections to nh outputs: at M = 4 rows cuBLAS picks
     # another kernel than for one row, whose sums round otherwise now
     # and then, so the slots' gates are one-row calls
@@ -220,13 +240,20 @@ def mlstm_block(params, x, cfg, *, make_cache: bool = False,
     li = gate(params["wi"], x)                              # (B,T,nh) raw
     lf = log_sigmoid(gate(params["wf"], x).float())
     if decode:
-        h, state = mlstm_recurrent(q, k, v, li, lf, decode_state["state"],
-                                   per_row=per_row)
+        h, *state = local_blocks(
+            lambda *a: _flat(mlstm_recurrent(*a[:5], a[5:],
+                                             per_row=per_row)),
+            (q, k, v, li, lf, *decode_state["state"]), _CELL_IN + _STATE,
+            (_BH,) + _STATE)
         new_state = copy_state(decode_state,
-                                {"conv": window[:, 1:], "state": state})
+                                {"conv": window[:, 1:],
+                                 "state": tuple(state)})
     else:
-        h, state = mlstm_chunkwise(q, k, v, li, lf,
-                                   min(cfg.xlstm.chunk_size, T))
+        chunk = min(cfg.xlstm.chunk_size, T)
+        h, *state = local_blocks(
+            lambda *a: _flat(mlstm_chunkwise(*a, chunk)), (q, k, v, li, lf),
+            _CELL_IN, (_BH,) + _STATE)
+        state = tuple(state)
         new_state = None
         if make_cache:
             K = params["conv_w"].shape[0]
@@ -273,11 +300,10 @@ def init_slstm_block(gen, cfg, dtype):
 def slstm_block(params, x, cfg, state=None, *, per_row: bool = False):
     """x: (B,T,d). Sequential over T (recurrent gate connections).
     Returns (y, (c, n, h, m)); a given ``state`` is written in place."""
-    B, T, d = x.shape
+    B, _, d = x.shape
     nh = cfg.n_heads
     dh = d // nh
-    gx = linear(params["wx"], x).reshape(B, T, nh, 4 * dh)
-    r = params["r"].float()
+    gx = split_heads(linear(params["wx"], x), nh, 4 * dh)
     if state is None:
         zero = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
         carry = (zero, zero, zero,
@@ -285,9 +311,24 @@ def slstm_block(params, x, cfg, state=None, *, per_row: bool = False):
                             device=x.device))
     else:
         carry = state
+    hseq, *new = local_blocks(
+        lambda gx, r, *carry: _slstm_scan(gx, r.float(), carry, per_row),
+        (gx, params["r"], *carry), (_BH, (None, 0)) + ((0, 1),) * 4,
+        (_BH,) + ((0, 1),) * 4)
+    new = tuple(new)
+    if state is not None:
+        new = copy_state(state, new)
+    hn = _group_norm(hseq, params["gn_scale"], nh)
+    return linear(params["out"], hn.to(x.dtype)), new
+
+
+def _slstm_scan(gx, r, carry, per_row: bool):
+    """The sLSTM recurrence over T: (B, T, nh, 4dh) gate inputs, the
+    (nh, dh, 4dh) recurrent weights, the (c, n, h, m) carry.  Returns
+    (h over T (B, T, nh, dh), c, n, h, m)."""
     c, n, h, m = carry
     hs = []
-    for t in range(T):
+    for t in range(gx.shape[1]):
         if per_row:
             rec = rowwise(lambda a: torch.einsum("bhd,hde->bhe", a, r), h)
         else:
@@ -303,12 +344,7 @@ def slstm_block(params, x, cfg, state=None, *, per_row: bool = False):
         h = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    new = (c, n, h, m)
-    if state is not None:
-        new = copy_state(state, new)
-    hseq = torch.stack(hs, dim=1).reshape(B, T, nh, dh)
-    hn = _group_norm(hseq, params["gn_scale"], nh)
-    return linear(params["out"], hn.to(x.dtype)), new
+    return (torch.stack(hs, dim=1), c, n, h, m)
 
 
 def init_slstm_cache(cfg, batch: int, device):

@@ -16,6 +16,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model_zoo
+from repro_torch.parallel.sharding import shard_act
+
+
+def _whole_rows(logits):
+    """(B, T, V) logits with each row's vocabulary on one rank (under a
+    mesh the argmax reads a whole row; a no-op without one)."""
+    return shard_act(logits, ("batch", None, None))
 
 
 def make_prefill_step(cfg: ArchConfig, *, tp: int = 1, cache_len: int = 0):
@@ -24,7 +31,7 @@ def make_prefill_step(cfg: ArchConfig, *, tp: int = 1, cache_len: int = 0):
     def prefill_step(params, batch):
         logits, caches = model_zoo.prefill(
             cfg, params, batch, cache_len or batch["tokens"].shape[1], tp=tp)
-        next_tok = torch.argmax(logits[:, -1:], dim=-1)
+        next_tok = torch.argmax(_whole_rows(logits[:, -1:]), dim=-1)
         return next_tok, caches
 
     return prefill_step
@@ -55,7 +62,8 @@ def make_serve_step(cfg: ArchConfig, *, tp: int = 1,
     def serve_step(params, token, caches, position, generator=None):
         logits, caches = model_zoo.decode_step(cfg, params, token, caches,
                                                position, tp=tp)
-        next_tok = sample_tokens(logits[:, 0].float(), temperature,
+        next_tok = sample_tokens(_whole_rows(logits)[:, 0].float(),
+                                 temperature,
                                  generator)
         return next_tok[:, None].to(torch.int32), caches
 

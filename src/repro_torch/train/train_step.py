@@ -20,6 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.models import model_zoo
 from repro_torch.optim.optimizer import OptConfig, apply_updates
+from repro_torch.parallel.sharding import vocab_parallel_lse
 
 REDUCE_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                  "f32": torch.float32, "float32": torch.float32}
@@ -40,9 +41,7 @@ def to_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 def cross_entropy(logits, labels, mask=None):
     """Mean CE in fp32. logits: (B, T, V); labels: (B, T) int."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse, ll = vocab_parallel_lse(logits.float(), labels)
     nll = lse - ll
     if mask is None:
         return torch.mean(nll)

@@ -2041,3 +2041,64 @@ def test_trainer_on_gpu_matches_the_cpu_then_serves_with_k7(gpu):
     assert counts["flash_attention"] > 0
     assert entries["flash_attention_wgmma_bf16"] == counts["flash_attention"]
     assert bool((toks >= 0).all()) and bool((toks < 512).all())
+
+
+# ---------------------------------------------------------------------------
+# the mesh tools (the dry-run touches no card)
+# ---------------------------------------------------------------------------
+@pytest.mark.needs_cuda
+def test_dryrun_leaves_cuda_uninitialised(gpu, tmp_path):
+    """The dry-run of whisper-tiny's decode_32k on the fake 16x16 mesh,
+    in a child process on a machine with a GPU: the cell is OK and the
+    child never initialised CUDA (fake CPU tensors, K7 and K8 on their
+    plain routes)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.dirname(os.path.dirname(common.__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(src))
+    out = tmp_path / "dryrun.jsonl"
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "whisper-tiny", "--shape", "decode_32k", "--mesh", "single",
+         "--out", str(out)],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "cuda initialized: False" in run.stdout, run.stdout
+    rec = json.loads(out.read_text().splitlines()[-1])
+    assert rec["status"] == "OK" and rec["n_devices"] == 256
+
+
+@pytest.mark.needs_cuda
+def test_cuda_dtensor_moe_matmul_reaches_k8_or_raises(gpu):
+    """DTensors on the card's one-device mesh: the MoE layer's route
+    (``sharding.grouped_blocks``) launches K8 once on the local blocks,
+    its result the plain version's; handed the DTensors themselves,
+    K8's wrapper raises before any launch."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import sharding as ps
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 64, 256, generator=g).to(torch.bfloat16).to(gpu)
+    w = torch.randn(8, 256, 128, generator=g).to(torch.bfloat16).to(gpu)
+    mesh = mesh_mod.make_host_mesh(device=gpu)
+    try:
+        rep = [Replicate()] * mesh.ndim
+        xd = DTensor.from_local(x, mesh, rep, run_check=False)
+        wd = DTensor.from_local(w, mesh, rep, run_check=False)
+        with ps.use_mesh(mesh), torch.no_grad():
+            common.reset_launches()
+            y = ps.grouped_blocks(gmm_ops.gmm_model, xd, wd)
+            assert common.launch_counts()["gmm"] == 1
+            with pytest.raises(ValueError, match="no memory of its own"):
+                gmm_ops.gmm_model(xd, wd)
+            assert common.launch_counts()["gmm"] == 1
+        torch.testing.assert_close(y.to_local().float(),
+                                   gmm_ref(x, w).float(),
+                                   atol=2e-2, rtol=2e-2)
+    finally:
+        mesh_mod.release()
